@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA card, ``nvcc`` and ``g++``, and imports nothing of JAX.
-Phases, each printed with its seconds; the first failure stops the run
-with a non-zero exit:
+It needs one CUDA card, ``nvcc``, ``cuobjdump`` and ``g++``, and imports
+nothing of JAX. Phases, each printed with its seconds; the first failure
+stops the run with a non-zero exit:
 
-1. device report: the card, ``nvidia-smi``'s name and power limit, the
-   CUDA version, whether ``nvcc`` and ``triton`` are there;
-2. build: the step kernels (ecfft_tpu_torch/csrc) and the native engine;
-3. each of the three step kernels against its plain PyTorch version on the
-   card, bit for bit (edge values, seeded random values at B = 1 and 256,
-   a non-zero window start, rows outside the window untouched), again at
-   the shapes the main path gives it (the step shape, and for the
-   self-read kernel the D-engine's one-lane row products), then both
-   timed at the main path's step shape;
-4. the main path: batched ENTER of 256 secp256k1 polynomials at n = 2^16
-   on a native-built tree, gated bit-for-bit against the native engine on
-   polys 0, 128 and 255 plus an EXIT round trip, with the kernels' launch
-   counts from that run, then timed over 5 warm reps on fresh inputs next
-   to the native single-core baseline (best of 3) measured in the same run;
-5. a JSON line of the kernels, the ``nvidia-smi`` line, and last the
+1. device report: the card, ``nvidia-smi``'s name and power limit, its SM
+   count and top SM clock, the CUDA version, ``nvcc`` and ``triton``;
+2. build: the kernels (``ecfft_tpu_torch/csrc``) and the native engine,
+   then the instructions one thread of each kernel issues, per pipe, read
+   from its SASS (``tools/sass_count.py``; for the operation bounds);
+3. set-up: a native-built secp256k1 tree at n = 2^16, its pool, the
+   ENTER/EXIT schedules and the unrolled executor's fusion analysis;
+4. each of the eight kernels against its plain PyTorch version on the
+   card, bit for bit: edge values and seeded random values at B = 1 and
+   256 with rows outside the window untouched, then at the shapes the
+   main paths give it; then each timed at its main shape (CUDA events,
+   with the SM clock and power draw read just after) beside its plain
+   version and its bound;
+5. the native single-core ENTER baseline (best of 3);
+6. the scan executor (the default): batched ENTER of 256 polynomials at
+   n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
+   and 255 plus an EXIT round trip, with its kernels' launch counts; then
+   5 warm reps on fresh inputs and the peak device memory;
+7. the same through the unrolled executor (``ECFFT_EXECUTOR=unrolled``),
+   whose EXIT round trip runs the 2-mul generic kernel; its launch counts
+   beside the counts its fusion analysis predicts;
+8. a JSON line of the kernels, the ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import json
 import os
 import random
@@ -38,8 +46,9 @@ from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FIELDS
 from ecfft_tpu_torch.native import NativeFFTree, native_library
-from ecfft_tpu_torch.ops import emit, step
+from ecfft_tpu_torch.ops import emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
+from tools import sass_count
 
 FIELD, N, BATCH, REPS = "secp256k1", 1 << 16, 256, 5
 DEV = torch.device("cuda", 0)  # one card
@@ -47,12 +56,45 @@ SPEC = FIELDS[FIELD]
 P = SPEC.p
 L = SPEC.num_limbs
 EDGE = [0, 1, P - 1, P - 2, P // 2, 2**16, 2**255 % P, (P - 1) // 2]
-SOURCE = "ecfft_tpu_torch/csrc/step_kernels.cu"
-REPLACES = {
-    "aff1s_ip": "ecfft_tpu/ops/pallas_step.py:298",
-    "aff1g_ip": "ecfft_tpu/ops/pallas_step.py:311",
-    "aff2g_ip": "ecfft_tpu/ops/pallas_step.py:324",
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
+# sm_90, per SM and clock (the CUDA C++ Programming Guide's throughput
+# table): 64 lanes of 32-bit integer multiply-add on the FMA pipe, 64 of
+# integer add, logic, shift and compare on the ALU pipe beside it, and
+# 4 warp instructions (128 lanes) issued in all
+PIPE_LANES_PER_SM, ISSUE_LANES_PER_SM = 64, 128
+# the reduction's fold loop runs twice per product of two canonical
+# values: after one round the high part is below 2^36, after two it is 0
+# unless the low half lies within 2^70 of 2^256 (one element in 2^186)
+FOLD_ROUNDS = 2
+# warm-up before a kernel is timed: right after a plain run at the main
+# shape (tens of GB of int64 temporaries freed) the next launches run up
+# to 8% slower for a few tens of ms (tools/ab_step_kernels.py)
+SETTLE_S = 0.25
+CASCADE_LANES, CASCADE_THREADS = 4, 256  # CL and CT in fused_kernels.cu
+STEP_SRC = "ecfft_tpu_torch/csrc/step_kernels.cu"
+FUSED_SRC = "ecfft_tpu_torch/csrc/fused_kernels.cu"
+KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
+    "aff1s_ip": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:298"),
+    "aff1g_ip": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:311"),
+    "aff2g_ip": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:324"),
+    "muladd1": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:338"),
+    "muladd2": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:364"),
+    "fused_cascade": (FUSED_SRC, "ecfft_tpu/ops/unrolled.py:200"),
+    "fused_bf1": (FUSED_SRC, "ecfft_tpu/ops/unrolled.py:272"),
+    "fused_bf2": (FUSED_SRC, "ecfft_tpu/ops/unrolled.py:345"),
 }
+WRAPPERS = {w.__name__: w
+            for w in (*step.STEP_WRAPPERS, *unrolled.FUSED_WRAPPERS)}
+SCAN_KERNELS = ("aff1s_ip", "aff1g_ip", "aff2g_ip")
+UNROLLED_KERNELS = ("aff1s_ip", "muladd1", "muladd2", "fused_cascade",
+                    "fused_bf1", "fused_bf2")
+# the SASS function of each wrapper's kernel (muladd1/2 launch
+# step_kernel<1>/<2>, the kernels of aff1g/aff2g)
+SASS_NAMES = {"aff1s_ip": "step_kernelILi0E", "aff1g_ip": "step_kernelILi1E",
+              "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
+              "muladd2": "step_kernelILi2E", "fused_bf1": "bf_kernelILb0E",
+              "fused_bf2": "bf_kernelILb1E",
+              "fused_cascade": "cascade_kernel"}
 
 
 def log(*a):
@@ -88,63 +130,26 @@ def rand_limbs(shape, gen):
     return x
 
 
-def plain_window(kind, coeffs, state, x1, x2, start):
-    """The plain PyTorch version of ``kind`` on the same inputs: the new
-    window rows (int64), the reference the kernel is held to."""
-    if kind == "aff2g_ip":
-        return step._muladd2_cols(SPEC, coeffs[0].unsqueeze(-1), x1,
-                                  coeffs[1].unsqueeze(-1), x2)
-    x1 = state[start:start + x2.shape[0]] if kind == "aff1s_ip" else x1
-    return step._muladd1_cols(SPEC, coeffs[0].unsqueeze(-1), x1, x2)
+def edge_rows(A, B, shift=0):
+    """(A, L, B) limbs cycling through the edge values, and (A, L) rows
+    that pair every edge coefficient with every edge value."""
+    E = len(EDGE)
+    x = fd.encode(SPEC, [[EDGE[(i + b + shift) % E] for b in range(B)]
+                         for i in range(A)], DEV)
+    c = fd.encode(SPEC, [EDGE[(i // E + shift) % E] for i in range(A)], DEV)
+    return x.permute(0, 2, 1).contiguous(), c
 
 
-def launch(kind, coeffs, state, x1, x2, start):
-    wrapper = getattr(step, kind)
-    if kind == "aff1s_ip":
-        wrapper(SPEC, coeffs[0], state, x2, start)
-    elif kind == "aff1g_ip":
-        wrapper(SPEC, coeffs[0], state, x1, x2, start)
-    else:
-        wrapper(SPEC, coeffs[0], coeffs[1], state, x1, x2, start)
-
-
-def operands(kind, W, A, B, gen, edge=False):
-    n_coef = 2 if kind == "aff2g_ip" else 1
-    state = rand_limbs((W, B), gen).permute(0, 2, 1).contiguous()
-    if edge:  # every edge coefficient against every edge value
-        E = len(EDGE)
-        cvals = [EDGE[(i // E) % E] for i in range(A)]
-        xvals = [[EDGE[(i + b) % E] for b in range(B)] for i in range(A)]
-        coeffs = [fd.encode(SPEC, cvals, DEV)] * n_coef
-        x = fd.encode(SPEC, xvals, DEV).permute(0, 2, 1).contiguous()
-        x1, x2 = x, x.clone()
-    else:
-        coeffs = [rand_limbs((A,), gen) for _ in range(n_coef)]
-        x1, x2 = (rand_limbs((A, B), gen).permute(0, 2, 1).contiguous()
-                  for _ in range(2))
-    return coeffs, state, x1, x2
-
-
-def compare(kind, coeffs, state, x1, x2, start):
-    """Run the kernel on a copy of ``state`` and hold its window against
-    the plain version on the same operands. Rows outside the window must
-    come back untouched. Returns (max |kernel - plain|, the plain window)."""
-    A = x2.shape[0]
-    want = plain_window(kind, coeffs, state, x1, x2, start)
-    got = state.clone()
-    launch(kind, coeffs, got, x1, x2, start)
-    torch.cuda.synchronize()
-    check(torch.equal(got[:start], state[:start])
-          and torch.equal(got[start + A:], state[start + A:]),
-          f"{kind}: rows outside the window changed")
-    err = int((got[start:start + A].long() - want).abs_().max())
-    return err, want
-
-
-def cuda_ms(fn, reps):
-    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events,
-    after one warm-up run)."""
+def cuda_ms(fn, reps, settle_s=0.0):
+    """Mean device milliseconds of ``fn`` over ``reps`` runs (CUDA events),
+    after one warm-up run and, with ``settle_s``, more of them until that
+    many seconds have passed."""
     fn()
+    torch.cuda.synchronize()
+    end = time.perf_counter() + settle_s
+    while time.perf_counter() < end:
+        fn()
+        torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -155,67 +160,403 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def kernels_against_plain(gen, main_A, main_W, main_bsx):
-    """Phase 3: bit-exact comparisons at small shapes and at the main
-    path's shapes, then timings at the main path's step shape. Returns
-    {kind: {"max_abs_err", "ms", "plain_ms"}}, the error the largest over
+def reset_counts():
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in WRAPPERS.items()}
+
+
+# ------------------------------------------------------------ the bounds
+
+
+def kernel_sass(lib: str) -> dict:
+    """Each wrapper's kernel as SASS instructions (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    funcs = sass_count.functions(subprocess.run(
+        [tool, "-sass", lib], capture_output=True, text=True,
+        check=True).stdout)
+    found = {k: insts for k, pat in SASS_NAMES.items()
+             for name, insts in funcs.items() if pat in name}
+    check(set(found) == set(SASS_NAMES), f"SASS functions found: {found}")
+    return found
+
+
+def thread_work(kind, A, B, kinds=()):
+    """(threads, instructions one thread issues per pipe) of one call
+    on a window of A rows and B lanes, along the path this data takes
+    (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one per
+    nonzero limb of F in each)."""
+    nz = sum(1 for v in step._field(SPEC).f if v)
+    per = sass_count.thread_counts(SASS[kind], FOLD_ROUNDS, nz, kinds)
+    if kind == "fused_cascade":
+        threads = (A // unrolled.TW) * -(-B // CASCADE_LANES) \
+            * CASCADE_THREADS
+    elif kind in ("fused_bf1", "fused_bf2"):
+        threads = A // 2 * B  # a thread updates both rows of a pair
+    else:
+        threads = A * B
+    return threads, per
+
+
+def bound(kind, A, B, kinds=()):
+    """The least time of one call, for this design's instruction stream
+    (16-bit limbs in 32-bit words): the larger of the bytes the function
+    must move (each input read once and each output written once: 64 B
+    per element per window, 64 B per row per coefficient row) over the
+    memory rate, and the instructions over their rate (each pipe's count
+    over its 64 lanes, all of them over the 128 issue lanes, per SM and
+    clock). Returns {bound_ms, bound_by, bytes_bound_ms, ops_bound_ms,
+    ops_bound_by}."""
+    E, el, row = A * B, L * 4, A * L * 4
+    two = kind in ("aff2g_ip", "muladd2", "fused_bf2")
+    if kind == "fused_cascade":
+        nbytes = 2 * E * el + (len(kinds) + sum(kinds)) * row
+    elif kind in ("fused_bf1", "fused_bf2"):
+        nbytes = 2 * E * el + (1 + two) * row
+    else:
+        nbytes = 3 * E * el + (1 + two) * row
+    threads, per = thread_work(kind, A, B, kinds)
+    pipe = SM_CLOCKS * PIPE_LANES_PER_SM
+    ops = {"fma pipe": per["fma"] * threads / pipe,
+           "alu pipe": per["alu"] * threads / pipe,
+           "issue": per["all"] * threads / (SM_CLOCKS * ISSUE_LANES_PER_SM)}
+    ops_by = max(ops, key=ops.get)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops[ops_by] * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms,
+            "ops_bound_by": ops_by}
+
+
+def clock_now() -> str:
+    """The card's SM clock and power draw as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+# ------------------------------------------- the kernels and their plain
+
+
+def step_args(kind, A, B, gen, edge, W, start):
+    """Operands of a step kernel: coefficient rows, windows x1, x2 and a
+    state of W rows with its window at ``start``. x1 is None where the step reads the state's own
+    window, as the main paths' aff1s and muladd1 (OP_AFF1S) steps do."""
+    n_coef = 2 if kind in ("aff2g_ip", "muladd2") else 1
+    if edge:
+        x1, c = edge_rows(A, B)
+        x2, c2 = edge_rows(A, B, 3)
+        coeffs = [c, c2][:n_coef]
+    else:
+        coeffs = [rand_limbs((A,), gen) for _ in range(n_coef)]
+        x1, x2 = (rand_limbs((A, B), gen).permute(0, 2, 1).contiguous()
+                  for _ in range(2))
+    state = rand_limbs((W, B), gen).permute(0, 2, 1).contiguous()
+    if kind in ("aff1s_ip", "muladd1"):
+        if edge:  # the edge values in the window it reads
+            state[start:start + A] = x1
+        x1 = None
+    return coeffs, state, x1, x2
+
+
+def run_step(kind, coeffs, state, x1, x2, start, plain):
+    """The kernel, or its plain version, on these operands: the state
+    with its window [start, start + A) written."""
+    A = x2.shape[0]
+    if x1 is None:
+        x1 = state[start:start + A]
+    if plain:
+        if len(coeffs) == 2:
+            new = step._muladd2_cols(SPEC, coeffs[0].unsqueeze(-1), x1,
+                                     coeffs[1].unsqueeze(-1), x2)
+        else:
+            new = step._muladd1_cols(SPEC, coeffs[0].unsqueeze(-1), x1, x2)
+        state[start:start + A] = new
+        return state
+    w = WRAPPERS[kind]
+    if kind.startswith("muladd"):
+        w(SPEC, *coeffs, x1, x2, state, start)
+    elif kind == "aff1s_ip":
+        w(SPEC, coeffs[0], state, x2, start)
+    else:
+        w(SPEC, *coeffs, state, x1, x2, start)
+    return state
+
+
+def fused_args(kind, W, A, B, gen, edge, levels, start):
+    """Operands of a fused kernel: a random state of W rows (its window
+    [start, start + A) cycling through the edge values where ``edge``),
+    and its coefficient rows (edge or random)."""
+    state = rand_limbs((W, B), gen).permute(0, 2, 1).contiguous()
+    n = (2 if kind == "fused_bf2" else 1) if levels is None else (
+        len(levels[0]) + max(sum(levels[1]), 1))
+    if edge:
+        state[start:start + A] = edge_rows(A, B)[0]
+        rows = [edge_rows(A, 1, 3 + i)[1] for i in range(n)]
+    else:
+        rows = [rand_limbs((A,), gen) for _ in range(n)]
+    if levels is None:
+        return state, tuple(rows)
+    k = len(levels[0])
+    return state, (torch.stack(rows[:k]), torch.stack(rows[k:]))
+
+
+def run_fused(kind, state, rows, start, half, levels, plain):
+    """The kernel, or its plain version, on ``state`` in place."""
+    if kind == "fused_cascade":
+        if plain:
+            unrolled._cascade_plain(SPEC, state, *rows, start, *levels)
+        else:
+            unrolled.fused_cascade(SPEC, state, *rows, start, *levels)
+    elif plain:
+        awin = rows[0] if kind == "fused_bf2" else None
+        unrolled._pair_plain(SPEC, state, awin, rows[-1], start, half)
+    else:
+        WRAPPERS[kind](SPEC, state, *rows, start, half)
+    return state
+
+
+def held_to_plain(kernel, plain, state, start, A):
+    """max |kernel - plain| over the window, each run on a copy of the
+    state; rows outside the window must come back untouched."""
+    want, got = plain(state.clone()), kernel(state.clone())
+    torch.cuda.synchronize()
+    check(torch.equal(got[:start], state[:start])
+          and torch.equal(got[start + A:], state[start + A:]),
+          "rows outside the window changed")
+    got, want = got[start:start + A], want[start:start + A]
+    err = int((got.long() - want.long()).abs_().max())
+    del want, got
+    return err
+
+
+def kernels_against_plain(gen, sched, cascade_run):
+    """Phase 4. Returns {kind: stats}; max_abs_err is the largest over
     every comparison of that kernel."""
+    W, A, bsx = sched.W, sched.A, sched.bs_max
     res = {}
-    for kind in REPLACES:
+    for kind in KERNELS:
+        fused = kind.startswith("fused")
         err = 0
-        for B, edge in ((1, True), (256, True), (1, False), (256, False)):
-            W, A, start = 1024, 512, 384
-            coeffs, state, x1, x2 = operands(kind, W, A, B, gen, edge)
-            e, want = compare(kind, coeffs, state, x1, x2, start)
+        # small shapes: edge and random values at B = 1 and 256
+        small = ([(128, None), (256, None)] if kind != "fused_cascade"
+                 else [(None, ((64, 1, 64), (0, 0, 1)))]) if fused else [
+            (None, None)]
+        for half, levels in small:
+            for B, edge in ((1, True), (256, True), (1, False),
+                            (256, False)):
+                if fused:
+                    a = 512 if half is None else 4 * half
+                    s0 = 384 if half is None else 4 * half
+                    st, rows = fused_args(kind, s0 + a + 128, a, B, gen,
+                                          edge, levels, s0)
+                    e = held_to_plain(
+                        lambda s: run_fused(kind, s, rows, s0, half,
+                                            levels, False),
+                        lambda s: run_fused(kind, s, rows, s0, half,
+                                            levels, True), st, s0, a)
+                else:
+                    a, s0 = 512, 384
+                    cf, st, x1, x2 = step_args(kind, a, B, gen, edge, 1024, s0)
+                    e = held_to_plain(
+                        lambda s: run_step(kind, cf, s, x1, x2, s0, False),
+                        lambda s: run_step(kind, cf, s, x1, x2, s0, True),
+                        st, s0, a)
+                    if edge and B == 1:  # and the plain version vs ints
+                        plain_vs_ints(kind, cf, st, x1, x2, s0)
+                err = max(err, e)
+                log(f"{kind} B={B} {'edge' if edge else 'random'}"
+                    f"{'' if half is None else f' half={half}'}: "
+                    f"max |kernel - plain| = {e}")
+        # the main paths' shapes
+        if kind == "fused_cascade":
+            start, halves, kinds = cascade_run
+            mains = [(None, (tuple(halves), tuple(kinds)), start)]
+        elif fused:  # one tile apart, and (A/4 = 16384) a quarter window
+            mains = [(h, None, A) for h in sorted(
+                {unrolled.TW, max(unrolled.TW, A // 4)})]
+        else:
+            mains = [(None, None, W - A - 128)]
+        for half, levels, start in mains:
+            if fused:
+                st, rows = fused_args(kind, W, A, BATCH, gen, False,
+                                      levels, start)
+                kern = (lambda s: run_fused(kind, s, rows, start, half,
+                                            levels, False))
+                plain = (lambda s: run_fused(kind, s, rows, start, half,
+                                             levels, True))
+            else:
+                cf, st, x1, x2 = step_args(kind, A, BATCH, gen, False, W,
+                                           start)
+                kern = (lambda s: run_step(kind, cf, s, x1, x2, start,
+                                           False))
+                plain = (lambda s: run_step(kind, cf, s, x1, x2, start,
+                                            True))
+            e = held_to_plain(kern, plain, st, start, A)
             err = max(err, e)
-            if edge and B == 1:  # and the plain version against ints
-                dec = fd.decode(SPEC, want[:64, :, 0])
-                cv = fd.decode(SPEC, coeffs[0][:64])
-                xv = fd.decode(SPEC, x2[:64, :, 0])
-                sv = fd.decode(SPEC, (x1 if kind != "aff1s_ip"
-                                      else state[start:])[:64, :, 0])
-                for q in range(64):
-                    exp = (cv[q] * xv[q] + (cv[q] if kind == "aff2g_ip"
-                                            else 1) * sv[q]) % P
-                    check(dec[q] == exp, f"{kind} plain version vs ints")
-            log(f"{kind} B={B} {'edge' if edge else 'random'}: "
-                f"max |kernel - plain| = {e}")
-        # the step shape of the main path: ENTER's state and window
-        coeffs, state, x1, x2 = operands(kind, main_W, main_A, BATCH, gen)
-        start = main_W - main_A - 128
-        e, want = compare(kind, coeffs, state, x1, x2, start)
-        del want
-        err = max(err, e)
-        log(f"{kind} at (W={main_W}, A={main_A}, L={L}, B={BATCH}): "
-            f"max |kernel - plain| = {e}")
+            what = (f"(W={W}, A={A}, L={L}, B={BATCH}"
+                    + ("" if half is None else f", half={half}")
+                    + ("" if levels is None else
+                       f", {len(levels[0])} levels {levels}") + ")")
+            log(f"{kind} at {what}: max |kernel - plain| = {e}")
+            torch.cuda.empty_cache()
+            if kind not in res:  # timed at its first main shape
+                ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
+                clk = clock_now()
+                plain_ms = cuda_ms(lambda: plain(st), 3)
+                b = bound(kind, A, BATCH, levels[1] if levels else ())
+                log(f"{kind} at {what}: kernel {ms:.3f} ms (then {clk}), "
+                    f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+                    f"by {b['bound_by']} (bytes {b['bytes_bound_ms']:.3f} "
+                    f"ms, operations {b['ops_bound_ms']:.3f} ms by "
+                    f"{b['ops_bound_by']}); the kernel takes "
+                    f"{ms / b['bound_ms']:.3f}x the bound")
+                res[kind] = {"ms": ms, "plain_ms": plain_ms, **b,
+                             "library_ms": None, "shape": what}
+            elif fused:
+                ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
+                log(f"{kind} at {what}: kernel {ms:.3f} ms (then "
+                    f"{clock_now()})")
+            del st
+            torch.cuda.empty_cache()
         if kind == "aff1s_ip":  # the D-engine's one-lane row products
-            a, b = rand_limbs((main_bsx,), gen), rand_limbs((main_bsx,), gen)
+            a, b = rand_limbs((bsx,), gen), rand_limbs((bsx,), gen)
             got = step.mul_rows(SPEC, a, b)
             want = step._muladd1_cols(
                 SPEC, a.unsqueeze(-1), torch.zeros_like(a).unsqueeze(-1),
                 b.unsqueeze(-1)).squeeze(-1)
             e = int((got.long() - want).abs_().max())
             err = max(err, e)
-            log(f"{kind} one-lane row products (mul_rows) at ({main_bsx}, "
+            log(f"{kind} one-lane row products (mul_rows) at ({bsx}, "
                 f"{L}, 1): max |kernel - plain| = {e}")
         check(err == 0, f"{kind} disagrees with its plain version")
-        torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: launch(kind, coeffs, state, x1, x2, start), 20)
-        plain_ms = cuda_ms(
-            lambda: plain_window(kind, coeffs, state, x1, x2, start), 3)
-        log(f"{kind} at (W={main_W}, A={main_A}, L={L}, B={BATCH}): kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-        res[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del coeffs, state, x1, x2
-        torch.cuda.empty_cache()
+        res[kind]["max_abs_err"] = err
     return res
 
 
+def plain_vs_ints(kind, coeffs, state, x1, x2, start):
+    """The plain version of a step against python ints on 64 rows."""
+    want = run_step(kind, coeffs, state.clone(), x1, x2, start, True)
+    want = want[start:]
+    dec = fd.decode(SPEC, want[:64, :, 0])
+    cb = fd.decode(SPEC, coeffs[-1][:64])
+    ca = fd.decode(SPEC, coeffs[0][:64])
+    xv = fd.decode(SPEC, x2[:64, :, 0])
+    sv = fd.decode(SPEC, (x1 if x1 is not None else state[start:])
+                   [:64, :, 0])
+    for q in range(64):
+        a = ca[q] if len(coeffs) == 2 else 1
+        check(dec[q] == (cb[q] * xv[q] + a * sv[q]) % P,
+              f"{kind} plain version vs ints")
+
+
+# ---------------------------------------------------------- the analysis
+
+
+def analysis_counts(sched, meta):
+    """Per transform, the launches the fusion analysis predicts for each
+    unrolled kernel, and the runs of in-tile levels (start, halves,
+    kinds) as the executor flushes them before splitting."""
+    ops = sched.xs[0]
+    starts = sched.xs[1]
+    tw = unrolled.TW
+    c = collections.Counter()
+    runs, cur = [], None
+    for t, h in enumerate(meta.fusable):
+        two = int(ops[t]) in (emit.OP_AFFINE, emit.OP_AFFINE_C)
+        if 0 < h < tw:
+            if cur is not None and cur[0] == int(starts[t]):
+                cur[1].append(h)
+                cur[2].append(int(two))
+                continue
+            cur = [int(starts[t]), [h], [int(two)]]
+            runs.append(cur)
+            continue
+        cur = None
+        if h:
+            c["fused_bf2" if two else "fused_bf1"] += 1
+        else:
+            c["muladd2" if two else "muladd1"] += 1
+    c["fused_cascade"] = sum(-(-len(r[1]) // unrolled.MAX_LEVELS)
+                             for r in runs)
+    c["levels"] = sum(len(r[1]) for r in runs)
+    return c, runs
+
+
+# ------------------------------------------------------------ main path
+
+
+def gate(tree, coeffs, nt_out, nt, label):
+    """ENTER of the batch, then an EXIT of poly 0, each with the counts
+    set to 0 just before and read just after. Returns (ENTER output,
+    ENTER counts, EXIT counts, seconds of the first ENTER)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = tree.enter(coeffs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    enter_counts = read_counts()
+    check(out.shape == coeffs.shape and out.dtype == torch.int32,
+          f"{label} ENTER output shape")
+    check(bool(((out >= 0) & (out < 1 << 16)).all()),
+          f"{label} ENTER output limbs out of range")
+    for bi in (0, BATCH // 2, BATCH - 1):
+        got = [int(v) for v in fd.decode(SPEC, out[bi])]
+        if bi not in nt_out:
+            nt_out[bi] = nt.enter([int(v) for v in
+                                   fd.decode(SPEC, coeffs[bi])])
+        check(got == nt_out[bi],
+              f"{label} ENTER does not match the native engine (poly {bi})")
+    torch.cuda.synchronize()
+    reset_counts()
+    back = tree.exit(out[:1].contiguous())
+    torch.cuda.synchronize()
+    exit_counts = read_counts()
+    check(torch.equal(back, coeffs[:1]),
+          f"{label} EXIT does not round-trip ENTER (poly 0)")
+    log(f"{label}: first ENTER (B={BATCH}, n={N}) {first_s:.3f} s; gate "
+        f"passed: ENTER == native on polys 0, {BATCH // 2}, {BATCH - 1}; "
+        f"EXIT(ENTER(poly 0)) == poly 0")
+    log(f"{label} launches per ENTER: {enter_counts}")
+    log(f"{label} launches per EXIT: {exit_counts}")
+    return out, enter_counts, exit_counts
+
+
+def timed_reps(tree, gen, label):
+    """Best of REPS warm ENTERs on fresh inputs, and the peak device
+    memory over them."""
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    for _ in range(REPS):
+        fresh = rand_limbs((BATCH, N), gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree.enter(fresh)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del fresh
+    best = min(times)
+    peak = torch.cuda.max_memory_allocated(DEV)
+    log(f"{label} warm ENTER reps (s): {[round(t, 4) for t in times]}")
+    log(f"{label} ENTER throughput: {BATCH / best:.3f} polys/s "
+        f"({best / BATCH * 1e3:.4f} ms/poly); peak device memory "
+        f"{peak / 1e9:.3f} GB")
+    return BATCH / best, peak
+
+
 def main() -> int:
+    global SASS, SM_CLOCKS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.cuda.set_device(DEV)
+    os.environ.pop("ECFFT_EXECUTOR", None)
 
     with Phase("1 device report"):
         name = torch.cuda.get_device_name(0)
@@ -223,6 +564,12 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.strip().splitlines()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        SM_CLOCKS = sms * float(clock) * 1e6  # SM clocks per second
         nvcc = shutil.which("nvcc") or (
             "/usr/local/cuda/bin/nvcc"
             if os.path.exists("/usr/local/cuda/bin/nvcc") else None)
@@ -233,37 +580,63 @@ def main() -> int:
             triton_v = None
         log(f"device: {name}; count {torch.cuda.device_count()}")
         log(smi)
+        log(f"{sms} SMs, top SM clock {clock} MHz: "
+            f"{SM_CLOCKS * PIPE_LANES_PER_SM / 1e12:.3f} T lanes/s per "
+            f"integer pipe, {SM_CLOCKS * ISSUE_LANES_PER_SM / 1e12:.3f} T "
+            f"issued; memory {HBM_BYTES_PER_S / 1e12} TB/s")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"nvcc {nvcc}, triton {triton_v}")
 
     with Phase("2 build"):
         t0 = time.perf_counter()
-        step.load_kernels()
-        log(f"step kernels built and loaded in "
-            f"{time.perf_counter() - t0:.3f} s")
+        lib = step.load_kernels()
+        log(f"kernels built and loaded in {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
         native_library()
         log(f"native engine built in {time.perf_counter() - t0:.3f} s")
+        SASS = kernel_sass(lib._name)
+        nz = sum(1 for v in step._field(SPEC).f if v)
+        for k in KERNELS:
+            if k != "fused_cascade":
+                log(f"{k}: one thread issues "
+                    f"{sass_count.thread_counts(SASS[k], FOLD_ROUNDS, nz)}")
+        base = sass_count.thread_counts(SASS["fused_cascade"], FOLD_ROUNDS, nz)
+        for kind in (0, 1):
+            one = sass_count.thread_counts(SASS["fused_cascade"],
+                                           FOLD_ROUNDS, nz, [kind])
+            log(f"fused_cascade: one thread issues {base} outside the "
+                f"levels, and per level of kind {kind} "
+                f"{ {x: one[x] - base[x] for x in one} }")
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
-    # ENTER's state and window at n: W = 2n + 1 rounded up to 128 rows,
-    # the combine steps' window of n rows, and the D-engine's n/2 scratch
-    # rows (checked in phase 4)
-    main_W, main_A, main_bsx = (2 * N + 1 + 127) & ~127, N, N // 2
-    with Phase("3 kernels against their plain versions"):
-        kstats = kernels_against_plain(gen, main_A, main_W, main_bsx)
-
-    with Phase("4a tree, pool and schedules (set-up)"):
+    with Phase("3 tree, pool, schedules and the unrolled analysis (set-up)"):
+        t0 = time.perf_counter()
         tree = build_fftree_native(FIELD, N, device=DEV).prepare()
-        sched = tree._schedule("enter", N)[0]
-        log(f"W={sched.W} A={sched.A} steps={len(sched.xs[0])} "
-            f"pool rows={tree._pool.shape[0]}")
-        check((sched.W, sched.A, sched.bs_max) == (main_W, main_A,
-                                                    main_bsx),
-              "phase 3 checked other shapes than ENTER's")
+        log(f"tree, pool and schedules: {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        os.environ["ECFFT_EXECUTOR"] = "unrolled"
+        tree.prepare()
+        os.environ.pop("ECFFT_EXECUTOR")
+        log(f"unrolled analysis: {time.perf_counter() - t0:.3f} s")
+        sched, _, meta = tree._schedule("enter", N)
+        predicted = {}
+        for alg in ("enter", "exit"):
+            s, _, m = tree._schedule(alg, N)
+            predicted[alg], runs = analysis_counts(s, m)
+            if alg == "enter":
+                cascade_run = max(runs, key=lambda r: len(r[1]))
+            log(f"{alg}: W={s.W} A={s.A} steps={len(s.xs[0])}; the "
+                f"analysis predicts {dict(predicted[alg])} "
+                f"(longest in-tile run {max(len(r[1]) for r in runs)})")
+        log(f"pool rows={tree._pool.shape[0]}; ENTER's longest in-tile run: "
+            f"start {cascade_run[0]}, halves {cascade_run[1]}, kinds "
+            f"{cascade_run[2]}")
 
-    with Phase("4b native single-core ENTER baseline"):
+    with Phase("4 kernels against their plain versions"):
+        kstats = kernels_against_plain(gen, sched, cascade_run)
+
+    with Phase("5 native single-core ENTER baseline"):
         nt = NativeFFTree(FIELD, N)
         rng = random.Random(1)
         base = []
@@ -276,50 +649,20 @@ def main() -> int:
         log(f"native ENTER: {native_s:.4f} s/poly (reps "
             f"{[round(t, 4) for t in base]})")
 
-    with Phase("4c ENTER on the card, gated against the native engine"):
-        coeffs = rand_limbs((BATCH, N), gen)
-        torch.cuda.synchronize()
-        for w in step.STEP_WRAPPERS:
-            w.launches = 0
-        t0 = time.perf_counter()
-        out = tree.enter(coeffs)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = {w.__name__: w.launches for w in step.STEP_WRAPPERS}
-        log(f"first ENTER (B={BATCH}, n={N}): {first_s:.3f} s; kernel "
-            f"launches {launches}")
-        check(all(v > 0 for v in launches.values()),
-              f"a step kernel was not launched on the main path: {launches}")
-        check(out.shape == coeffs.shape and out.dtype == torch.int32,
-              "ENTER output shape")
-        check(bool(((out >= 0) & (out < 1 << 16)).all()),
-              "ENTER output limbs out of range")
-        for bi in (0, BATCH // 2, BATCH - 1):
-            ints = [int(v) for v in fd.decode(SPEC, coeffs[bi])]
-            got = [int(v) for v in fd.decode(SPEC, out[bi])]
-            check(got == nt.enter(ints),
-                  f"ENTER does not match the native engine (poly {bi})")
-        back = tree.exit(out[:1].contiguous())
-        check(torch.equal(back, coeffs[:1]),
-              "EXIT does not round-trip ENTER (poly 0)")
-        log(f"gate passed: ENTER == native on polys 0, {BATCH // 2}, "
-            f"{BATCH - 1}; EXIT(ENTER(poly 0)) == poly 0")
+    coeffs = rand_limbs((BATCH, N), gen)
+    nt_out = {}
+    with Phase("6a scan executor: ENTER gated against the native engine"):
+        scan_out, scan_enter, scan_exit = gate(tree, coeffs, nt_out, nt,
+                                               "scan")
+        scan_launches = {k: scan_enter[k] + scan_exit[k] for k in KERNELS}
+        check(all(scan_launches[k] > 0 for k in SCAN_KERNELS),
+              f"a scan kernel was not launched: {scan_launches}")
 
-    with Phase("4d ENTER timing, fresh inputs per rep"):
-        times = []
-        for _ in range(REPS):
-            fresh = rand_limbs((BATCH, N), gen)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tree.enter(fresh)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        best = min(times)
-        log(f"warm ENTER reps (s): {[round(t, 4) for t in times]}")
-        log(f"ENTER throughput: {BATCH / best:.3f} polys/s "
-            f"({best / BATCH * 1e3:.4f} ms/poly); native single-core "
-            f"{native_s:.4f} s/poly = {1 / native_s:.3f} polys/s; "
-            f"ratio {BATCH / best * native_s:.2f}x")
+    with Phase("6b scan executor: ENTER timing, fresh inputs per rep"):
+        scan_tput, scan_peak = timed_reps(tree, gen, "scan")
+        log(f"native single-core {native_s:.4f} s/poly = "
+            f"{1 / native_s:.3f} polys/s; ratio "
+            f"{scan_tput * native_s:.2f}x")
         # the D-engine's cost on one DOP_LEVEL step (5 one-lane row
         # products through the self-read kernel, plus plane gathers)
         t = int(next(i for i, d in enumerate(sched.xs[3][:, 0])
@@ -330,10 +673,37 @@ def main() -> int:
                                          D, iD, int(sched.xs[0][t])), 20)
         log(f"D-engine, one DOP_LEVEL step ({sched.bs_max} rows): "
             f"{d_ms:.4f} ms")
+        del D, iD
 
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": launches[k],
-                **kstats[k]} for k in REPLACES]
+    os.environ["ECFFT_EXECUTOR"] = "unrolled"
+    with Phase("7a unrolled executor: ENTER gated against the native engine"):
+        out, un_enter, un_exit = gate(tree, coeffs, nt_out, nt, "unrolled")
+        check(torch.equal(out, scan_out),
+              "the unrolled ENTER differs from the scan ENTER")
+        del out, scan_out
+        for alg, got in (("enter", un_enter), ("exit", un_exit)):
+            want = predicted[alg]
+            log(f"unrolled {alg}: launches / analysis: " + ", ".join(
+                f"{k} {got[k]}/{want[k]}" for k in UNROLLED_KERNELS[1:])
+                + f"; aff1s_ip (D-engine) {got['aff1s_ip']}")
+        un_launches = {k: un_enter[k] + un_exit[k] for k in KERNELS}
+        check(all(un_launches[k] > 0 for k in UNROLLED_KERNELS),
+              f"an unrolled kernel was not launched: {un_launches}")
+
+    with Phase("7b unrolled executor: ENTER timing, fresh inputs per rep"):
+        un_tput, un_peak = timed_reps(tree, gen, "unrolled")
+        log(f"ENTER throughput, this run: scan {scan_tput:.3f} polys/s "
+            f"(peak {scan_peak / 1e9:.3f} GB), unrolled {un_tput:.3f} "
+            f"polys/s (peak {un_peak / 1e9:.3f} GB); unrolled / scan "
+            f"{un_tput / scan_tput:.3f}")
+    os.environ.pop("ECFFT_EXECUTOR")
+
+    kernels = []
+    for k, (src, replaces) in KERNELS.items():
+        launches = (scan_launches if k in SCAN_KERNELS else un_launches)[k]
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches,
+                        **kstats[k]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 H100, slice by slice. This package imports torch, numpy and the standard
 library only, never jax or ``ecfft_tpu``.
 
-The first slice is ENTER and EXIT over secp256k1 on the schedule machine,
-with the three in-place step kernels written in CUDA for Hopper::
+The port carries ENTER and EXIT over secp256k1 on the schedule machine,
+on the scan executor or (``ECFFT_EXECUTOR=unrolled``) the unrolled one,
+with every step kernel written in CUDA for Hopper. Trees live on the card
+unless the caller passes ``device="cpu"``::
 
     import ecfft_tpu_torch as ec
 
-    tree = ec.build_fftree_native("secp256k1", 1 << 10, device="cuda")
+    tree = ec.build_fftree_native("secp256k1", 1 << 10)  # on "cuda"
     coeffs = tree.encode([[...], [...]])   # (B, n, 16) int32 limbs
     evals = tree.enter(coeffs)             # coeffs -> evals
     back = tree.exit(evals)                # evals -> coeffs

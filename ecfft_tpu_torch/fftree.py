@@ -9,7 +9,13 @@ The tables (``{m: {name: (rows, L) int32, "mats": [...]}}``, the JAX
 package's layout) stay on the CPU: they feed only the coefficient pool,
 which is built there once (:meth:`FFTree.prepare`) and then moved to the
 tree's device with the schedules' residual banks. Batches are (..., n, L)
-int32 tensors of 16-bit limbs on that device.
+int32 tensors of 16-bit limbs on that device: the card (``"cuda"``)
+unless the caller names another. Constructing a tree touches no device.
+
+``ECFFT_EXECUTOR=unrolled`` runs the transforms on the unrolled executor
+(``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
+the schedule, made in :meth:`FFTree.prepare` when that executor is
+selected.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec, get_spec
 from ecfft_tpu_torch.native import build_tables_native
 from ecfft_tpu_torch.ops import emit
-from ecfft_tpu_torch.ops.schedule import build_pool, run_schedule
+from ecfft_tpu_torch.ops.schedule import (build_pool, run_schedule,
+                                          unrolled_selected)
+from ecfft_tpu_torch.ops.unrolled import _SchedMeta
 
 _EMITTERS = {"enter": emit.enter_schedule, "exit": emit.exit_schedule}
 
@@ -33,7 +41,7 @@ class FFTree:
     every power-of-two size ≤ n, with batch-first ENTER and EXIT."""
 
     def __init__(self, spec: str | FieldSpec, n: int, tables: dict,
-                 device="cpu"):
+                 device="cuda"):
         self.spec = get_spec(spec)
         fd.check_fold(self.spec)
         self.n = n
@@ -64,8 +72,9 @@ class FFTree:
 
     def prepare(self, sizes: tuple | None = None) -> "FFTree":
         """Build the coefficient pool (on the CPU, then moved to the
-        device) and the ENTER/EXIT schedules for ``sizes`` (default: n)
-        ahead of the first transform."""
+        device) and the ENTER/EXIT schedules for ``sizes`` (default: n),
+        with the unrolled executor's analysis where it is selected, ahead
+        of the first transform."""
         if self._pool is None:
             pool, self._pool_off = build_pool(self.spec, self.tables)
             self._pool = pool.to(self.device)
@@ -75,13 +84,18 @@ class FFTree:
         return self
 
     def _schedule(self, alg: str, m: int):
+        """[schedule, residual bank on the device, unrolled analysis or
+        None] for ``alg`` at size m, built at first use."""
         key = (alg, m)
         if key not in self._scheds:
             self.prepare(())
             s = _EMITTERS[alg](self._pool_off, m)
             bank = torch.from_numpy(s.xs[5]).to(self.device, torch.int64)
-            self._scheds[key] = (s, bank)
-        return self._scheds[key]
+            self._scheds[key] = [s, bank, None]
+        entry = self._scheds[key]
+        if entry[2] is None and unrolled_selected():
+            entry[2] = _SchedMeta(entry[0])
+        return entry
 
     def _run_sched(self, alg: str, batch) -> torch.Tensor:
         m = batch.shape[-2]
@@ -92,10 +106,10 @@ class FFTree:
                 f"expected (..., {m}, {self.spec.num_limbs}) int32 limbs on "
                 f"{self.device}, got {tuple(batch.shape)} {batch.dtype} on "
                 f"{batch.device}")
-        sched, bank = self._schedule(alg, m)
+        sched, bank, meta = self._schedule(alg, m)
         flat = batch.reshape(-1, m, self.spec.num_limbs)
         out = run_schedule(self.spec, self._pool, sched, bank, flat,
-                           one_pos=2 * m, m_out=m)
+                           one_pos=2 * m, m_out=m, meta=meta)
         return out.reshape(batch.shape)
 
     def enter(self, coeffs) -> torch.Tensor:
@@ -108,7 +122,7 @@ class FFTree:
 
 
 def build_fftree_native(field: str | FieldSpec, n: int,
-                        device="cpu") -> FFTree | None:
+                        device="cuda") -> FFTree | None:
     """A size-``n`` FFTree whose tables the native engine builds; None
     when n exceeds the field's curve two-adicity."""
     spec = get_spec(field)

@@ -2,16 +2,18 @@
 
 Two libraries, each with a plain C interface opened through ctypes:
 
-- the step kernels, from ``csrc/step_kernels.cu``, for Hopper
-  (``sm_90a``), with ``torch.utils.cpp_extension.load`` (one call, all
-  sources) where ``ninja`` is installed, else with ``nvcc`` directly.
-  The sources include no PyTorch header, so either way the build takes
-  seconds. This runs only where a CUDA tensor reaches a step wrapper: no
-  card, no build.
+- the kernels, from ``csrc/step_kernels.cu`` and ``csrc/fused_kernels.cu``
+  (both including ``csrc/field_arith.cuh``), for Hopper (``sm_90a``),
+  with ``torch.utils.cpp_extension.load`` (one call, all sources, which
+  tracks the header through nvcc's dependency files) where ``ninja`` is
+  installed, else with ``nvcc`` directly. The sources include no PyTorch
+  header, so either way the build takes seconds. This runs only where a
+  CUDA tensor reaches a kernel's wrapper: no card, no build.
 - the native C++ engine, from the unchanged ``native/ecfft_native.cpp``,
   with ``g++``.
 
-A library is rebuilt when it is missing or older than its sources. Each
+A library is rebuilt when it is missing or older than its sources or
+headers. Each
 build writes a temporary file and moves it into place with ``os.replace``,
 so processes that build at once never load a half-written library. A
 failed build raises; nothing falls back.
@@ -25,7 +27,9 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNEL_SOURCES = [os.path.join(_PKG, "csrc", "step_kernels.cu")]
+KERNEL_SOURCES = [os.path.join(_PKG, "csrc", f)
+                  for f in ("step_kernels.cu", "fused_kernels.cu")]
+KERNEL_HEADERS = [os.path.join(_PKG, "csrc", "field_arith.cuh")]
 NATIVE_SOURCE = os.path.join(os.path.dirname(_PKG), "native",
                              "ecfft_native.cpp")
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -62,20 +66,20 @@ def native_library() -> str:
 
 
 def kernel_library() -> str:
-    """Path of the step kernels' shared library, built if stale."""
+    """Path of the kernels' shared library, built if stale."""
     from torch.utils import cpp_extension
 
     if cpp_extension.is_ninja_available():
         kdir = os.path.join(BUILD_DIR, "kernels")
         os.makedirs(kdir, exist_ok=True)
-        name = "ecfft_step_kernels"
+        name = "ecfft_kernels"
         cpp_extension.load(
             name=name, sources=KERNEL_SOURCES, build_directory=kdir,
             extra_cuda_cflags=["-O3", CUDA_ARCH], is_python_module=False,
             verbose=False)
         return os.path.join(kdir, f"{name}.so")
-    out = os.path.join(BUILD_DIR, "libecfft_step_kernels.so")
-    if _stale(out, KERNEL_SOURCES):
+    out = os.path.join(BUILD_DIR, "libecfft_kernels.so")
+    if _stale(out, KERNEL_SOURCES + KERNEL_HEADERS):
         nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda",
                             "bin", "nvcc")
         _compile(lambda o: [nvcc, CUDA_ARCH, "-std=c++17", "-O3", "-shared",

@@ -20,6 +20,9 @@ step wrappers of ``ops/step.py``. Every index is clamped as ``jnp.clip``
 clamps it in the reference (``index_select`` would raise where
 ``jnp.take`` clips).
 
+``ECFFT_EXECUTOR=unrolled`` hands a schedule to the unrolled executor
+(``ops/unrolled.py``), which fuses the butterfly levels instead.
+
 Left out, as plumbing for the TPU: the step-row envelope segmentation,
 the run-split/``lax.switch`` choice with buffer donation, ``lax.map``
 chunking inside segments and the TPU tile-padding preflight. Batch
@@ -27,6 +30,8 @@ chunking stays, budgeted from ``torch.cuda.mem_get_info``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -220,11 +225,37 @@ def _d_engine(spec: FieldSpec, pool, dps, D, iD, op: int):
     return CA, CB, D, iD
 
 
+def col_row(sched: Schedule, bank, t: int, ci: int, p):
+    """Index row of column ci of step t at window positions ``p``: its
+    residual bank row, or its formula synthesised."""
+    rid = sched.xs[4]
+    if rid[t, ci] >= 0:
+        return bank[int(rid[t, ci])]
+    return _synth(sched.xs[2][t, ci], p)
+
+
+def coeff_rows(pool, rows, scratch_rows, pad_row, bsx: int):
+    """Coefficient rows at index ``rows``: from the pool, or (where the
+    step reads the D-engine's scratch) from ``scratch_rows`` behind the
+    passthrough row 0 (one for A, zero for B/C; emitters index
+    coefficients at 1 + r)."""
+    if scratch_rows is None:
+        return pool.index_select(0, rows.clamp(0, pool.shape[0] - 1))
+    tab = torch.cat([pad_row, scratch_rows])
+    return tab.index_select(0, rows.clamp(0, bsx))
+
+
+def check_opcode(op: int) -> None:
+    if op not in _OPS:
+        raise NotImplementedError(
+            f"opcode {op} (OP_MUL / OP_CMPSEL) is not on the ENTER/EXIT "
+            "path and not ported yet (ROADMAP.md, Queue 1)")
+
+
 def _run_steps(spec: FieldSpec, pool, sched: Schedule, bank, x):
     """Step the (W, L, B) state ``x`` through the schedule, in place."""
-    ops_a, starts, colp, dp, rid, _ = sched.xs
+    ops_a, starts, _, dp, _, _ = sched.xs
     W, A = sched.W, sched.A
-    P = pool.shape[0]
     dev = x.device
     q = torch.arange(A, device=dev)
     bsx = max(sched.bs_max, 1)
@@ -233,28 +264,17 @@ def _run_steps(spec: FieldSpec, pool, sched: Schedule, bank, x):
     one_row, zero_row = pool[1:2], pool[0:1]
     for t in range(ops_a.shape[0]):
         op = int(ops_a[t])
-        if op not in _OPS:
-            raise NotImplementedError(
-                f"opcode {op} (OP_MUL / OP_CMPSEL) is not on the ENTER/EXIT "
-                "path and not ported yet (ROADMAP.md, Queue 1)")
+        check_opcode(op)
         start = int(starts[t])
         p = q + start
 
-        def col(ci):
-            if rid[t, ci] >= 0:
-                return bank[int(rid[t, ci])]
-            return _synth(colp[t, ci], p)
-
         def gather(ci):
-            return x.index_select(0, col(ci).clamp(0, W - 1))
+            return x.index_select(0, col_row(sched, bank, t, ci, p)
+                                  .clamp(0, W - 1))
 
         def coeffs(ci, scratch_rows, pad_row):
-            if scratch_rows is None:
-                return pool.index_select(0, col(ci).clamp(0, P - 1))
-            # scratch row 0 is the passthrough constant: one for A,
-            # zero for B/C; emitters index coefficients at 1 + r
-            tab = torch.cat([pad_row, scratch_rows])
-            return tab.index_select(0, col(ci).clamp(0, bsx))
+            return coeff_rows(pool, col_row(sched, bank, t, ci, p),
+                              scratch_rows, pad_row, bsx)
 
         x2 = gather(3)
         CA, CB, D, iD = _d_engine(spec, pool, dp[t], D, iD, op)
@@ -272,9 +292,9 @@ _ALLOC_MARGIN = 256 << 20  # room for the caching allocator's fragmentation
 
 
 def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int):
-    """(per-lane bytes, fixed bytes) of running ``sched`` on a batch of B.
-    Per lane: the int32 state and the two gather temps. Fixed: the whole
-    (B, m_out, L) output, and the per-step temporaries that do not grow
+    """(per-lane bytes, fixed bytes) of running ``sched`` on a batch of B
+    by either executor. Per lane: the int32 state and two gathered windows.
+    Fixed: the whole (B, m_out, L) output, and the per-step temporaries that do not grow
     with the batch (coefficient rows, int64 index rows, the D-engine's
     planes and row products), with a margin for the allocator."""
     bsx = max(sched.bs_max, 1)
@@ -298,19 +318,34 @@ def _lanes_per_chunk(sched: Schedule, L: int, B: int, m_out: int,
     lanes = (free - fixed) // per_lane
     if lanes < 1:
         raise SizeError(
-            f"one lane of a (W={sched.W}, L={L}) state with its gather "
+            f"one lane of a (W={sched.W}, L={L}) state with its window "
             f"temps needs {per_lane / 1e9:.2f} GB beside "
             f"{fixed / 1e9:.2f} GB of output and step temporaries; "
             f"{free / 1e9:.2f} GB free")
     return min(B, int(lanes))
 
 
+def unrolled_selected() -> bool:
+    """Whether ``ECFFT_EXECUTOR=unrolled`` picks the unrolled executor."""
+    return os.environ.get("ECFFT_EXECUTOR") == "unrolled"
+
+
 def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
-                 one_pos: int, m_out: int):
+                 one_pos: int, m_out: int, meta=None):
     """Execute a schedule: (B, m, L) int32 ``batch`` → (B, m_out, L).
 
     ``pool``: (P, L) int32 on the batch's device; ``bank``: the
-    schedule's residual row bank as an int64 tensor on that device."""
+    schedule's residual row bank as an int64 tensor on that device.
+
+    Dispatch, as in the JAX package: this scan executor is the default;
+    ``ECFFT_EXECUTOR=unrolled`` hands the schedule to
+    ``ops.unrolled.run_unrolled`` with ``meta``, its fusion analysis of
+    ``sched`` (made there when None)."""
+    if unrolled_selected():
+        from ecfft_tpu_torch.ops.unrolled import run_unrolled
+
+        return run_unrolled(spec, pool, sched, bank, batch, one_pos, m_out,
+                            meta)
     B, _, L = batch.shape
     out = batch.new_empty((B, m_out, L))
     chunk = _lanes_per_chunk(sched, L, B, m_out, batch.device)

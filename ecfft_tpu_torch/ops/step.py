@@ -1,7 +1,7 @@
-"""The schedule machine's three in-place affine steps.
+"""The schedule machine's affine steps, each writing a window of a state.
 
-Each wrapper updates the window [start, start + A) of a (W, L, B) int32
-state in place:
+The in-place wrappers update the window [start, start + A) of a
+(W, L, B) int32 state:
 
 - :func:`aff1s_ip`: state[s+q] ← state[s+q] + C[q]·x2[q]   (OP_AFF1S*)
 - :func:`aff1g_ip`: state[s+q] ← x1[q] + C[q]·x2[q]          (OP_AFF1*)
@@ -9,7 +9,13 @@ state in place:
 
 with (A, L) coefficient rows and (A, L, B) gathered windows x1, x2. They
 replace ``pallas_aff1s_ip``, ``pallas_aff1g_ip`` and ``pallas_aff2g_ip``
-of ``ecfft_tpu/ops/pallas_step.py``.
+of ``ecfft_tpu/ops/pallas_step.py``. The muladd pair replaces the
+out-of-place ``pallas_muladd1``/``pallas_muladd2`` (the unrolled
+executor's generic steps) and writes rows [start, start + A) of an output
+of the caller's choosing: the state itself, or a new window (start 0):
+
+- :func:`muladd1`: out[s+q] ← x1[q] + C[q]·x2[q]
+- :func:`muladd2`: out[s+q] ← A[q]·x1[q] + B[q]·x2[q]
 
 A CUDA tensor goes to the hand-written kernel in ``csrc/step_kernels.cu``
 (built at first use by ``ops/_build.py``), or the wrapper raises: there
@@ -18,10 +24,11 @@ is no fallback. A CPU tensor goes to the plain PyTorch version beside it
 package's XLA step in int64. Each wrapper counts its kernel launches in
 its ``launches`` attribute; the plain path does not count.
 
-x1 and x2 must be buffers of their own, never views of the state: the
-in-place write is race-free only because every thread reads its inputs
-from them (or, for the self-read step, from the one state element it
-writes).
+For the in-place steps x1 and x2 must be buffers of their own, never
+views of the state: the in-place write is race-free only because every
+thread reads its inputs from them (or, for the self-read step, from the
+one state element it writes). The muladd pair also takes x1 as the very
+window it writes (OP_AFF1S), for the same reason.
 """
 
 from __future__ import annotations
@@ -61,20 +68,28 @@ def _muladd2_cols(spec: FieldSpec, A, x1, B, x2):
 _lib = None
 
 
+# (tensor pointers, ints) of each kernel's C interface after the field
+# constants; a stream pointer follows them
+_SIGNATURES = {
+    "ecfft_aff1s_ip": (3, 3), "ecfft_aff1g_ip": (4, 3),
+    "ecfft_aff2g_ip": (5, 3), "ecfft_muladd1": (4, 3),
+    "ecfft_muladd2": (5, 3), "ecfft_fused_bf1": (2, 4),
+    "ecfft_fused_bf2": (3, 4), "ecfft_fused_cascade": (4, 4),
+}
+
+
 def load_kernels() -> ctypes.CDLL:
-    """Build (if stale) and load the step kernels' library."""
+    """Build (if stale) and load the kernels' library."""
     global _lib
     if _lib is None:
         from ecfft_tpu_torch.ops._build import kernel_library
 
         so = ctypes.CDLL(kernel_library())
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, n_ptrs in (("ecfft_aff1s_ip", 3), ("ecfft_aff1g_ip", 4),
-                             ("ecfft_aff2g_ip", 5)):
+        for name, (n_ptrs, n_ints) in _SIGNATURES.items():
             fn = getattr(so, name)
             fn.restype = i32
-            # field, tensor pointers, start, A, B, stream
-            fn.argtypes = [ptr] + [ptr] * n_ptrs + [i32, i32, i32, ptr]
+            fn.argtypes = [ptr] + [ptr] * n_ptrs + [i32] * n_ints + [ptr]
         so.ecfft_error_string.restype = ctypes.c_char_p
         so.ecfft_error_string.argtypes = [i32]
         _lib = so
@@ -82,7 +97,7 @@ def load_kernels() -> ctypes.CDLL:
 
 
 class _Field(ctypes.Structure):
-    """Mirror of ``struct Field`` in step_kernels.cu."""
+    """Mirror of ``struct Field`` in csrc/field_arith.cuh."""
     _fields_ = [("p", ctypes.c_uint32 * KERNEL_LIMBS),
                 ("f", ctypes.c_uint32 * KERNEL_LIMBS),
                 ("slack", ctypes.c_int)]
@@ -96,7 +111,7 @@ def _field(spec: FieldSpec) -> _Field:
     if (L != KERNEL_LIMBS or spec.limb_bits != 16 or spec.fold_terms is None
             or sum(d for _, d in spec.fold_terms) >= 1 << 10):
         raise NotImplementedError(
-            f"{spec.name}: the CUDA step kernels take fold-friendly primes "
+            f"{spec.name}: the CUDA kernels take fold-friendly primes "
             "with 16 limbs of 16 bits (fold digits summing below 2^10); "
             "the CIOS Montgomery branch and the M31 (L=1) step are still "
             "to be ported (ROADMAP.md, Queue 2)")
@@ -107,14 +122,17 @@ def _field(spec: FieldSpec) -> _Field:
                   (ctypes.c_uint32 * L)(*f), 16 * L - spec.p.bit_length())
 
 
-def _launch(name: str, spec: FieldSpec, tensors, state, start: int,
-            A: int) -> None:
+def launch(name: str, spec: FieldSpec, device, *args) -> None:
+    """Call kernel ``name`` on ``device``'s current stream with the field's
+    constants, then ``args``: tensors go as their data pointers, the rest
+    (ints, ctypes references) as they are. Raises on a refused launch."""
     fn = getattr(load_kernels(), name)
     fld = _field(spec)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = fn(ctypes.byref(fld), *(t.data_ptr() for t in tensors),
-                 state.data_ptr(), start, A, state.shape[2], stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(ctypes.byref(fld),
+                 *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{load_kernels().ecfft_error_string(err)}")
@@ -123,20 +141,17 @@ def _launch(name: str, spec: FieldSpec, tensors, state, start: int,
 # -------------------------------------------------------------- wrappers
 
 
-def _check(spec: FieldSpec, state, start: int, coeffs, windows) -> int:
-    """Validate a step's operands; returns the window height A."""
+def check_operands(spec: FieldSpec, device, tensors, coeffs, windows,
+                   A: int, B: int) -> None:
+    """Every tensor int32, contiguous and on ``device``; coefficient rows
+    (A, L), windows (A, L, B), none of them empty."""
     fd.check_fold(spec)
-    if state.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {state.device}")
-    if state.dim() != 3 or state.shape[1] != spec.num_limbs:
-        raise ValueError(f"state must be (W, {spec.num_limbs}, B), got "
-                         f"{tuple(state.shape)}")
-    W, L, B = state.shape
-    A = windows[0].shape[0]
-    for t in (state, *coeffs, *windows):
-        if t.device != state.device:
-            raise ValueError(f"operand on {t.device}, state on "
-                             f"{state.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    L = spec.num_limbs
+    for t in (*tensors, *coeffs, *windows):
+        if t.device != device:
+            raise ValueError(f"operand on {t.device}, state on {device}")
         if t.dtype != torch.int32:
             raise TypeError(f"operands must be int32, got {t.dtype}")
         if not t.is_contiguous():
@@ -149,13 +164,32 @@ def _check(spec: FieldSpec, state, start: int, coeffs, windows) -> int:
         if tuple(w.shape) != (A, L, B):
             raise ValueError(f"windows must be ({A}, {L}, {B}), got "
                              f"{tuple(w.shape)}")
+    if A == 0 or B == 0:
+        raise ValueError("empty window")
+
+
+def check_state(spec: FieldSpec, state, start: int, A: int) -> None:
+    """A (W, L, B) state whose rows hold the window [start, start + A)."""
+    if state.dim() != 3 or state.shape[1] != spec.num_limbs:
+        raise ValueError(f"state must be (W, {spec.num_limbs}, B), got "
+                         f"{tuple(state.shape)}")
+    if not 0 <= start <= state.shape[0] - A:
+        raise ValueError(f"window [{start}, {start + A}) outside the "
+                         f"state's {state.shape[0]} rows")
+
+
+def _check(spec: FieldSpec, state, start: int, coeffs, windows) -> int:
+    """Validate an in-place step's operands; returns the window height A."""
+    check_state(spec, state, start, 0)
+    A = windows[0].shape[0]
+    check_operands(spec, state.device, (state,), coeffs, windows, A,
+                   state.shape[2])
+    for w in windows:
         if w.untyped_storage().data_ptr() == \
                 state.untyped_storage().data_ptr():
             raise ValueError("a gathered window may not share the "
                              "state's storage")
-    if A == 0 or B == 0 or not 0 <= start <= W - A:
-        raise ValueError(f"window [{start}, {start + A}) outside the "
-                         f"state's {W} rows, or empty")
+    check_state(spec, state, start, A)
     return A
 
 
@@ -163,7 +197,8 @@ def aff1s_ip(spec: FieldSpec, C, state, x2, start: int) -> None:
     """state[start+q] ← state[start+q] + C[q]·x2[q] in place (OP_AFF1S)."""
     A = _check(spec, state, start, (C,), (x2,))
     if state.is_cuda:
-        _launch("ecfft_aff1s_ip", spec, (C, x2), state, start, A)
+        launch("ecfft_aff1s_ip", spec, state.device, C, x2, state, start,
+               A, state.shape[2])
         aff1s_ip.launches += 1
         return
     win = state[start:start + A]
@@ -174,7 +209,8 @@ def aff1g_ip(spec: FieldSpec, C, state, x1, x2, start: int) -> None:
     """state[start+q] ← x1[q] + C[q]·x2[q] in place (OP_AFF1)."""
     A = _check(spec, state, start, (C,), (x1, x2))
     if state.is_cuda:
-        _launch("ecfft_aff1g_ip", spec, (C, x1, x2), state, start, A)
+        launch("ecfft_aff1g_ip", spec, state.device, C, x1, x2, state,
+               start, A, state.shape[2])
         aff1g_ip.launches += 1
         return
     state[start:start + A] = _muladd1_cols(spec, C.unsqueeze(-1), x1, x2)
@@ -184,17 +220,63 @@ def aff2g_ip(spec: FieldSpec, A_, B_, state, x1, x2, start: int) -> None:
     """state[start+q] ← A[q]·x1[q] + B[q]·x2[q] in place (OP_AFFINE)."""
     A = _check(spec, state, start, (A_, B_), (x1, x2))
     if state.is_cuda:
-        _launch("ecfft_aff2g_ip", spec, (A_, B_, x1, x2), state, start, A)
+        launch("ecfft_aff2g_ip", spec, state.device, A_, B_, x1, x2, state,
+               start, A, state.shape[2])
         aff2g_ip.launches += 1
         return
     state[start:start + A] = _muladd2_cols(spec, A_.unsqueeze(-1), x1,
                                            B_.unsqueeze(-1), x2)
 
 
+def _check_out(spec: FieldSpec, coeffs, x1, x2, out, start: int) -> int:
+    """Validate a muladd's operands; returns the window height A. Rows
+    [start, start + A) of ``out`` are written, so no window may share its
+    storage except x1 as exactly those rows."""
+    if x2.dim() != 3:
+        raise ValueError(f"windows must be (A, L, B), got {tuple(x2.shape)}")
+    A = x2.shape[0]
+    check_state(spec, out, start, A)
+    check_operands(spec, out.device, (out,), coeffs, (x1, x2), A,
+                   out.shape[2])
+    own = out.untyped_storage().data_ptr()
+    if x2.untyped_storage().data_ptr() == own or (
+            x1.untyped_storage().data_ptr() == own
+            and x1.data_ptr() != out[start].data_ptr()):
+        raise ValueError("only x1 may share the output's storage, and only "
+                         "as the window it writes")
+    return A
+
+
+def muladd1(spec: FieldSpec, C, x1, x2, out, start: int) -> None:
+    """out[start+q] ← x1[q] + C[q]·x2[q] for a (W, L, B) ``out``: the
+    state, x1 possibly its own window, or a buffer of its own."""
+    A = _check_out(spec, (C,), x1, x2, out, start)
+    if out.is_cuda:
+        launch("ecfft_muladd1", spec, out.device, C, x1, x2, out, start, A,
+               out.shape[2])
+        muladd1.launches += 1
+        return
+    out[start:start + A] = _muladd1_cols(spec, C.unsqueeze(-1), x1, x2)
+
+
+def muladd2(spec: FieldSpec, A_, B_, x1, x2, out, start: int) -> None:
+    """out[start+q] ← A[q]·x1[q] + B[q]·x2[q] (as :func:`muladd1`)."""
+    A = _check_out(spec, (A_, B_), x1, x2, out, start)
+    if out.is_cuda:
+        launch("ecfft_muladd2", spec, out.device, A_, B_, x1, x2, out, start,
+               A, out.shape[2])
+        muladd2.launches += 1
+        return
+    out[start:start + A] = _muladd2_cols(spec, A_.unsqueeze(-1), x1,
+                                         B_.unsqueeze(-1), x2)
+
+
 aff1s_ip.launches = 0
 aff1g_ip.launches = 0
 aff2g_ip.launches = 0
-STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip)
+muladd1.launches = 0
+muladd2.launches = 0
+STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2)
 
 
 def mul_rows(spec: FieldSpec, a, b):

@@ -2,8 +2,8 @@
 with the compiler replaced by a stand-in that records its command and
 writes the output file: where ninja is missing, the step kernels go
 through nvcc for sm_90a into a temporary file that is moved into place,
-a fresh library is not rebuilt, and a failed build raises and leaves no
-file behind. The real builds run on a card (tests/test_torch_cuda.py)."""
+a fresh library is not rebuilt, one older than a shared header is, and a
+failed build raises and leaves no file behind. The real builds run on a card (tests/test_torch_cuda.py)."""
 
 import os
 import subprocess
@@ -46,6 +46,22 @@ def test_nvcc_build_is_atomic_and_not_repeated(compiler, tmp_path):
     assert _build.kernel_library() == out
     assert len(calls) == 1
     assert os.listdir(tmp_path) == [os.path.basename(out)]
+
+
+def test_a_newer_header_rebuilds(compiler, tmp_path, tmp_path_factory,
+                                 monkeypatch):
+    """Only the header changed since the build: the nvcc route rebuilds."""
+    calls, _ = compiler
+    header = tmp_path_factory.mktemp("csrc") / "field_arith.cuh"
+    header.write_text("// stand-in header\n")
+    monkeypatch.setattr(_build, "KERNEL_HEADERS", [str(header)])
+    out = _build.kernel_library()
+    assert _build.kernel_library() == out and len(calls) == 1
+    later = os.path.getmtime(out) + 10
+    os.utime(header, (later, later))
+    assert _build.kernel_library() == out
+    assert len(calls) == 2
+    assert all(src in calls[1] for src in _build.KERNEL_SOURCES)
 
 
 def test_failed_build_raises_and_leaves_nothing(compiler, tmp_path):

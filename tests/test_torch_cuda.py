@@ -1,5 +1,6 @@
-"""The port's CUDA step kernels on the card, against their plain PyTorch
-versions (the same wrappers on CPU copies of the inputs), bit for bit.
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions (the same wrappers on CPU copies of the inputs), bit for bit,
+and ENTER/EXIT on the card, by either executor, against the CPU's.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -15,7 +16,7 @@ import torch
 
 from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields.registry import FIELDS, spec_for_prime
-from ecfft_tpu_torch.ops import _build, schedule, step
+from ecfft_tpu_torch.ops import _build, schedule, step, unrolled
 
 pytestmark = pytest.mark.cuda
 
@@ -68,7 +69,7 @@ def _kernel_against_plain(card, kind, B):
 def test_enter_exit_on_card_match_cpu(card):
     n, gen = 256, torch.Generator().manual_seed(3)
     coeffs = _limbs(gen, 4, n)
-    cpu = build_fftree_native("secp256k1", n)
+    cpu = build_fftree_native("secp256k1", n, device="cpu")
     gpu = build_fftree_native("secp256k1", n, device=card)
     evals = gpu.enter(coeffs.to(card))
     assert torch.equal(evals.cpu(), cpu.enter(coeffs))
@@ -80,7 +81,7 @@ def test_enter_chunks_the_batch_when_the_card_is_short(card, monkeypatch):
     a batch of 4 in two chunks of 2 and still equals the CPU's."""
     n, B, gen = 256, 4, torch.Generator().manual_seed(5)
     coeffs = _limbs(gen, B, n)
-    cpu = build_fftree_native("secp256k1", n)
+    cpu = build_fftree_native("secp256k1", n, device="cpu")
     gpu = build_fftree_native("secp256k1", n, device=card).prepare()
     per_lane, fixed = schedule._chunk_bytes(gpu._schedule("enter", n)[0],
                                             L, B, n)
@@ -108,6 +109,105 @@ def test_kernels_build_with_nvcc_alone(card, monkeypatch, tmp_path):
     monkeypatch.setattr(step, "_lib", None)
     _kernel_against_plain(card, "aff2g_ip", 3)
     assert os.path.dirname(step._lib._name) == str(tmp_path)
+
+
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("kind", ["muladd1", "muladd2"])
+def test_out_of_place_kernel_matches_plain_version(card, kind, B):
+    """A new window, and rows [start, start + A) of a state with x1 its
+    own window (OP_AFF1S) or a buffer of its own."""
+    gen = torch.Generator().manual_seed(7 + B)
+    W, A, start = 520, 200, 264
+    x1, x2 = (_limbs(gen, A, B).permute(0, 2, 1).contiguous()
+              for _ in range(2))
+    state = _limbs(gen, W, B).permute(0, 2, 1).contiguous()
+    coeffs = [_limbs(gen, A) for _ in range(1 if kind == "muladd1" else 2)]
+    on_card = [c.to(card) for c in coeffs]
+    wrapper = getattr(step, kind)
+    want, got = torch.empty_like(x1), torch.empty_like(x1, device=card)
+    wrapper(SPEC, *coeffs, x1, x2, want, 0)
+    before = wrapper.launches
+    wrapper(SPEC, *on_card, x1.to(card), x2.to(card), got, 0)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    for i, own in enumerate((True, False)):
+        want = state.clone()
+        wrapper(SPEC, *coeffs, want[start:start + A] if own else x1, x2,
+                want, start)
+        got = state.to(card)
+        wrapper(SPEC, *on_card, got[start:start + A] if own
+                else x1.to(card), x2.to(card), got, start)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2 + i
+        assert torch.equal(got.cpu(), want)
+
+
+# (form, TW, half or halves, kinds): pair levels one and two tiles apart,
+# and cascades of mixed kinds, at the production tile and at TW = 8
+FUSED = [("bf1", 128, 128, None), ("bf1", 128, 256, None),
+         ("bf2", 128, 128, None), ("bf2", 128, 256, None),
+         ("bf1", 8, 16, None), ("bf2", 8, 8, None),
+         ("cascade", 128, (64, 1, 64), (0, 0, 1)),
+         ("cascade", 128, (32, 16, 8, 4, 2, 1), (0, 0, 0, 0, 0, 0)),
+         ("cascade", 8, (4, 1, 2), (1, 0, 1))]
+
+
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("form,tw,half,kinds", FUSED)
+def test_fused_kernel_matches_plain_version(card, monkeypatch, form, tw,
+                                            half, kinds, B):
+    monkeypatch.setattr(unrolled, "TW", tw)
+    gen = torch.Generator().manual_seed(tw + B)
+    if form == "cascade":
+        A, start = 4 * tw, 2 * tw
+        cw = _limbs(gen, len(half), A)
+        aw = _limbs(gen, max(sum(kinds), 1), A)
+        args = (cw, aw, start, half, kinds)
+    else:
+        A, start = 4 * half, 4 * half
+        coeffs = [_limbs(gen, A) for _ in range(1 if form == "bf1" else 2)]
+        args = (*coeffs, start, half)
+    state = _limbs(gen, start + A + tw, B).permute(0, 2, 1).contiguous()
+    wrapper = getattr(unrolled, f"fused_{form}")
+    want = state.clone()
+    wrapper(SPEC, want, *args)
+    got = state.to(card)
+    before = wrapper.launches
+    wrapper(SPEC, got, *(a.to(card) if isinstance(a, torch.Tensor) else a
+                         for a in args))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, state)
+
+
+@pytest.mark.parametrize("runs", ["whole", "split"])
+def test_unrolled_enter_exit_on_card_match_cpu(card, monkeypatch, runs):
+    """n = 1024 emits every fused form at TW = 128; "split" caps the
+    levels per cascade launch at 4."""
+    n, gen = 1024, torch.Generator().manual_seed(9)
+    coeffs = _limbs(gen, 2, n)
+    cpu = build_fftree_native("secp256k1", n, device="cpu")
+    want = cpu.enter(coeffs)
+    monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+    gpu = build_fftree_native("secp256k1", n, device=card).prepare()
+    max_levels = 4 if runs == "split" else unrolled.MAX_LEVELS
+
+    def run(alg, batch):
+        s, bank, meta = gpu._schedule(alg, n)
+        return unrolled.run_unrolled(SPEC, gpu._pool, s, bank, batch, 2 * n,
+                                     n, meta, max_levels)
+
+    counts = [w.launches for w in (*unrolled.FUSED_WRAPPERS,
+                                   *step.STEP_WRAPPERS[3:])]
+    evals = run("enter", coeffs.to(card))
+    assert torch.equal(evals.cpu(), want)
+    assert torch.equal(run("exit", evals).cpu(), coeffs)
+    assert torch.equal(gpu.enter(coeffs.to(card)), evals)
+    after = [w.launches for w in (*unrolled.FUSED_WRAPPERS,
+                                  *step.STEP_WRAPPERS[3:])]
+    assert all(a > b for a, b in zip(after, counts)), (counts, after)
 
 
 def test_unported_field_raises_on_card(card):

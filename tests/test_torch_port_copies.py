@@ -30,7 +30,7 @@ def test_imports_and_builds_with_jax_blocked():
         "sys.modules['ecfft_tpu'] = None\n"
         "import torch\n"
         "import ecfft_tpu_torch as ec\n"
-        "tree = ec.build_fftree_native('secp256k1', 16)\n"
+        "tree = ec.build_fftree_native('secp256k1', 16, device='cpu')\n"
         "x = tree.encode([[3 * i + 1 for i in range(16)]])\n"
         "assert torch.equal(tree.exit(tree.enter(x)), x)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ecfft_tpu.'))\n"
@@ -48,7 +48,9 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|ecfft_tpu)\b(?!_torch)",
 
 
 def test_no_jax_imports_in_the_port():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, p) for p in (
+        "chip_smoke.py", "tools/sass_count.py", "tools/ab_step_kernels.py",
+        "tools/profile_torch_enter.py")]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     for path in paths:

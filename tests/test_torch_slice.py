@@ -16,6 +16,7 @@ import torch
 from ecfft_tpu.native import NativeFFTree, build_fftree_native
 from ecfft_tpu.ops import schedule as jsch
 from ecfft_tpu_torch import FFTree
+from ecfft_tpu_torch import build_fftree_native as build_port_tree
 from ecfft_tpu_torch.convert import tables_from_numpy
 from ecfft_tpu_torch.errors import SizeError
 from ecfft_tpu_torch.ops import emit
@@ -33,7 +34,7 @@ def trees():
         m: {k: ([tuple(np.asarray(a) for a in q) for q in v]
                 if k == "mats" else np.asarray(v)) for k, v in t.items()}
         for m, t in jt.tables.items()}
-    tt = FFTree(FIELD, N, tables_from_numpy(np_tables))
+    tt = FFTree(FIELD, N, tables_from_numpy(np_tables), device="cpu")
     rng = np.random.RandomState(7)
     top = jt.spec.to_limbs(jt.spec.p)[-1]
     coeffs = rng.randint(0, 1 << 16, size=(BATCH, N, 16)).astype(np.uint32)
@@ -41,6 +42,13 @@ def trees():
     evals = np.asarray(jt.enter(jnp.asarray(coeffs)))
     back = np.asarray(jt.exit(jnp.asarray(evals)))
     return jt, tt, coeffs, evals, back
+
+
+def test_trees_default_to_the_card():
+    """A tree lives on the card unless the caller names another device;
+    building one touches no device, so this needs no card."""
+    assert FFTree(FIELD, N, {}).device.type == "cuda"
+    assert build_port_tree(FIELD, 16).device.type == "cuda"
 
 
 def test_pool_and_offsets_match_jax(trees):
