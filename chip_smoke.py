@@ -16,9 +16,11 @@ stops the run with a non-zero exit:
 4. each of the eight kernels against its plain PyTorch version on the
    card, bit for bit: edge values and seeded random values at B = 1 and
    256 with rows outside the window untouched, then at the shapes the
-   main paths give it; then each timed at its main shape (CUDA events,
-   with the SM clock and power draw read just after) beside its plain
-   version and its bound;
+   main paths give it; the two on 32-bit words (aff1s, the cascade) also
+   on inputs that stress the word reduction, for secp256k1 and for
+   2^255 − 19; then each timed at its main shape (CUDA events, with the
+   SM clock and power draw read just after) beside its plain version,
+   its bound (bytes or word products) and this design's issue bound;
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -44,7 +46,7 @@ import torch
 
 from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields import device as fd
-from ecfft_tpu_torch.fields.registry import FIELDS
+from ecfft_tpu_torch.fields.registry import FIELDS, spec_for_prime
 from ecfft_tpu_torch.native import NativeFFTree, native_library
 from ecfft_tpu_torch.ops import emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
@@ -55,22 +57,25 @@ DEV = torch.device("cuda", 0)  # one card
 SPEC = FIELDS[FIELD]
 P = SPEC.p
 L = SPEC.num_limbs
+ED = spec_for_prime(2**255 - 19)  # a second fold-friendly prime, slack 1
 EDGE = [0, 1, P - 1, P - 2, P // 2, 2**16, 2**255 % P, (P - 1) // 2]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
 # sm_90, per SM and clock (the CUDA C++ Programming Guide's throughput
-# table): 64 lanes of 32-bit integer multiply-add on the FMA pipe, 64 of
-# integer add, logic, shift and compare on the ALU pipe beside it, and
-# 4 warp instructions (128 lanes) issued in all
-PIPE_LANES_PER_SM, ISSUE_LANES_PER_SM = 64, 128
+# table, compute capability 9.0): 64 results of "32-bit integer multiply,
+# multiply-add, extended-precision multiply-add" (IMAD, IMAD.WIDE), the
+# rate of the work bound's word products; for this design's issue bound,
+# 64 lanes on the FMA pipe, 64 of integer add, logic, shift and compare
+# on the ALU pipe beside it, and 4 warp instructions (128 lanes) issued
+WORD_PRODUCTS_PER_SM, PIPE_LANES_PER_SM, ISSUE_LANES_PER_SM = 64, 64, 128
 # the reduction's fold loop runs twice per product of two canonical
-# values: after one round the high part is below 2^36, after two it is 0
-# unless the low half lies within 2^70 of 2^256 (one element in 2^186)
+# values: after one round the high part is below 2^35, after two it is 0
+# unless the low half lies within 2^68 of 2^256 (one element in 2^188)
 FOLD_ROUNDS = 2
 # warm-up before a kernel is timed: right after a plain run at the main
 # shape (tens of GB of int64 temporaries freed) the next launches run up
 # to 8% slower for a few tens of ms (tools/ab_step_kernels.py)
 SETTLE_S = 0.25
-CASCADE_LANES, CASCADE_THREADS = 4, 256  # CL and CT in fused_kernels.cu
+CASCADE_LANES, CASCADE_THREADS = 4, 512  # CL and CT in fused_kernels.cu
 STEP_SRC = "ecfft_tpu_torch/csrc/step_kernels.cu"
 FUSED_SRC = "ecfft_tpu_torch/csrc/fused_kernels.cu"
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
@@ -89,12 +94,14 @@ SCAN_KERNELS = ("aff1s_ip", "aff1g_ip", "aff2g_ip")
 UNROLLED_KERNELS = ("aff1s_ip", "muladd1", "muladd2", "fused_cascade",
                     "fused_bf1", "fused_bf2")
 # the SASS function of each wrapper's kernel (muladd1/2 launch
-# step_kernel<1>/<2>, the kernels of aff1g/aff2g)
-SASS_NAMES = {"aff1s_ip": "step_kernelILi0E", "aff1g_ip": "step_kernelILi1E",
+# step_kernel<1>/<2>, the kernels of aff1g/aff2g); the kernels on 32-bit
+# words (word_arith.cuh), whose fold runs one block per word of F
+SASS_NAMES = {"aff1s_ip": "aff1s_kernel", "aff1g_ip": "step_kernelILi1E",
               "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
               "muladd2": "step_kernelILi2E", "fused_bf1": "bf_kernelILb0E",
               "fused_bf2": "bf_kernelILb1E",
               "fused_cascade": "cascade_kernel"}
+WORD_KERNELS = ("aff1s_ip", "fused_cascade")
 
 
 def log(*a):
@@ -119,12 +126,12 @@ class Phase:
             log(f"== {self.name}: {time.perf_counter() - self.t0:.3f} s")
 
 
-def rand_limbs(shape, gen):
-    """Canonical secp256k1 values as (..., L) int32 limbs: uniform 16-bit
-    limbs with a top limb below p's (so every value is < p)."""
+def rand_limbs(shape, gen, spec=SPEC):
+    """Canonical values as (..., L) int32 limbs: uniform 16-bit limbs
+    with a top limb below p's (so every value is < p)."""
     x = torch.randint(0, 1 << 16, (*shape, L), generator=gen, device=DEV,
                       dtype=torch.int32)
-    top = SPEC.to_limbs(P)[-1]
+    top = spec.to_limbs(spec.p)[-1]
     x[..., -1] = torch.randint(0, top, shape, generator=gen, device=DEV,
                                dtype=torch.int32)
     return x
@@ -184,13 +191,20 @@ def kernel_sass(lib: str) -> dict:
     return found
 
 
+def fold_nonzero(kind, spec=SPEC) -> int:
+    """Nonzero digits of F = 2^256 mod p as the kernel's fold reads them:
+    32-bit words for the word kernels, 16-bit limbs for the others."""
+    fld = step._field(spec)
+    return sum(1 for v in (fld.fw if kind in WORD_KERNELS else fld.f) if v)
+
+
 def thread_work(kind, A, B, kinds=()):
     """(threads, instructions one thread issues per pipe) of one call
     on a window of A rows and B lanes, along the path this data takes
-    (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one per
-    nonzero limb of F in each)."""
-    nz = sum(1 for v in step._field(SPEC).f if v)
-    per = sass_count.thread_counts(SASS[kind], FOLD_ROUNDS, nz, kinds)
+    (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one block
+    per nonzero digit of F in each)."""
+    per = sass_count.thread_counts(SASS[kind], FOLD_ROUNDS,
+                                   fold_nonzero(kind), kinds)
     if kind == "fused_cascade":
         threads = (A // unrolled.TW) * -(-B // CASCADE_LANES) \
             * CASCADE_THREADS
@@ -201,15 +215,32 @@ def thread_work(kind, A, B, kinds=()):
     return threads, per
 
 
+def word_products(kind, kinds=(), spec=SPEC) -> int:
+    """32x32->64-bit word products one element needs, whatever kernel
+    computes it: 64 per product of two 8-word values, and per reduction
+    the fold's products of F's nonzero words by the high half's 8 words,
+    then by the words left after one round (the high part is then at
+    most 2F: two words for secp256k1). A cascade sums its levels."""
+    F = (1 << 256) % spec.p
+    fold = sum(1 for k in range(8) if (F >> 32 * k) & 0xFFFFFFFF) * (
+        8 + -(-(2 * F).bit_length() // 32))
+    if kind == "fused_cascade":
+        return sum(64 * (1 + k) + fold for k in kinds)
+    two = kind in ("aff2g_ip", "muladd2", "fused_bf2")
+    return 64 * (1 + two) + fold
+
+
 def bound(kind, A, B, kinds=()):
-    """The least time of one call, for this design's instruction stream
-    (16-bit limbs in 32-bit words): the larger of the bytes the function
+    """The least time of one call: the larger of the bytes the function
     must move (each input read once and each output written once: 64 B
     per element per window, 64 B per row per coefficient row) over the
-    memory rate, and the instructions over their rate (each pipe's count
-    over its 64 lanes, all of them over the 128 issue lanes, per SM and
-    clock). Returns {bound_ms, bound_by, bytes_bound_ms, ops_bound_ms,
-    ops_bound_by}."""
+    memory rate, and its word products (:func:`word_products`) over the
+    IMAD.WIDE rate. The same work whatever kernel computes it. Beside
+    it, this design's issue bound: the instructions of its SASS along one
+    thread's path, each pipe's count over its 64 lanes and all of them
+    over the 128 issue lanes, per SM and clock. Returns {bound_ms,
+    bound_by, bytes_bound_ms, ops_bound_ms, design_issue_bound_ms,
+    design_issue_by}."""
     E, el, row = A * B, L * 4, A * L * 4
     two = kind in ("aff2g_ip", "muladd2", "fused_bf2")
     if kind == "fused_cascade":
@@ -218,17 +249,20 @@ def bound(kind, A, B, kinds=()):
         nbytes = 2 * E * el + (1 + two) * row
     else:
         nbytes = 3 * E * el + (1 + two) * row
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = (word_products(kind, kinds) * E
+            / (SM_CLOCKS * WORD_PRODUCTS_PER_SM) * 1e3)
     threads, per = thread_work(kind, A, B, kinds)
     pipe = SM_CLOCKS * PIPE_LANES_PER_SM
-    ops = {"fma pipe": per["fma"] * threads / pipe,
-           "alu pipe": per["alu"] * threads / pipe,
-           "issue": per["all"] * threads / (SM_CLOCKS * ISSUE_LANES_PER_SM)}
-    ops_by = max(ops, key=ops.get)
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops[ops_by] * 1e3
+    issue = {"fma pipe": per["fma"] * threads / pipe,
+             "alu pipe": per["alu"] * threads / pipe,
+             "issue": per["all"] * threads / (SM_CLOCKS * ISSUE_LANES_PER_SM)}
+    issue_by = max(issue, key=issue.get)
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms,
-            "ops_bound_by": ops_by}
+            "design_issue_bound_ms": issue[issue_by] * 1e3,
+            "design_issue_by": issue_by}
 
 
 def clock_now() -> str:
@@ -412,9 +446,12 @@ def kernels_against_plain(gen, sched, cascade_run):
                 log(f"{kind} at {what}: kernel {ms:.3f} ms (then {clk}), "
                     f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
                     f"by {b['bound_by']} (bytes {b['bytes_bound_ms']:.3f} "
-                    f"ms, operations {b['ops_bound_ms']:.3f} ms by "
-                    f"{b['ops_bound_by']}); the kernel takes "
-                    f"{ms / b['bound_ms']:.3f}x the bound")
+                    f"ms, word products {b['ops_bound_ms']:.3f} ms); the "
+                    f"kernel takes {ms / b['bound_ms']:.3f}x the bound; "
+                    f"this design's issue bound "
+                    f"{b['design_issue_bound_ms']:.3f} ms by "
+                    f"{b['design_issue_by']} "
+                    f"({ms / b['design_issue_bound_ms']:.3f}x)")
                 res[kind] = {"ms": ms, "plain_ms": plain_ms, **b,
                              "library_ms": None, "shape": what}
             elif fused:
@@ -433,9 +470,103 @@ def kernels_against_plain(gen, sched, cascade_run):
             err = max(err, e)
             log(f"{kind} one-lane row products (mul_rows) at ({bsx}, "
                 f"{L}, 1): max |kernel - plain| = {e}")
+        if kind in WORD_KERNELS:
+            err = max(err, word_edges(kind, gen))
         check(err == 0, f"{kind} disagrees with its plain version")
         res[kind]["max_abs_err"] = err
     return res
+
+
+def word_edge_triples(spec, rng):
+    """(x, c, y) for x + c·y that stress the word kernels' reduction:
+    values near p and non-canonical ones up to 2^256 − 1, sums that lie
+    in [p, 2^256) before the final subtraction, products whose low half
+    lies within 2^70 of 2^256, and sums whose fold runs a third round."""
+    p, M = spec.p, (1 << 256) - 1
+    F = (1 << 256) % p
+    near = [0, 1, p - 2, p - 1, p, p + 1, (p - 1) // 2, M - 1, M]
+    out = [(x, c, y) for x in (0, p - 1, M) for c in near for y in near]
+    while len(out) < 3 * 81 + 48:
+        target = M - rng.randrange(M - p + 1)  # in [p, 2^256)
+        c = rng.randrange(2, 1 << 16)
+        y = target // c - rng.randrange(1 << 8)
+        out.append((target - c * y, c, y))
+        c = rng.randrange(1, p) | 1
+        y = (M + 1 - rng.randrange(1, 1 << 70)) * pow(c, -1, M + 1) % (M + 1)
+        if y < p:
+            out.append((rng.randrange(p), c, y))
+        c, y = rng.randrange(p), rng.randrange(p)
+        v = c * y
+        x = (M - rng.randrange(F) - (v & M) - (v >> 256) * F) % (M + 1)
+        if x < p:
+            out.append((x, c, y))
+    return out
+
+
+def int_limbs(values) -> torch.Tensor:
+    """Python ints below 2^256, not reduced, as (..., L) int32 limbs."""
+    flat = [[(v >> 16 * j) & 0xFFFF for j in range(L)] for v in values]
+    return torch.tensor(flat, dtype=torch.int32, device=DEV)
+
+
+def word_edges(kind, gen) -> int:
+    """The redesigned kernels (aff1s, the cascade) against their plain
+    versions on :func:`word_edge_triples`, for secp256k1 and 2^255 − 19,
+    at B = 1 and 256; aff1s also against Python ints. Returns the largest
+    |kernel − plain|."""
+    A, s0, W, err = 512, 384, 1024, 0
+    for spec in (SPEC, ED):
+        tri = word_edge_triples(spec, random.Random(spec.p % 997))
+        for B in (1, 256):
+            state = rand_limbs((W, B), gen, spec).permute(0, 2, 1).contiguous()
+            if kind == "aff1s_ip":
+                rows = [tri[q % len(tri)] for q in range(A)]
+                xs, cs, ys = (int_limbs([t[i] for t in rows])
+                              for i in range(3))
+                state[s0:s0 + A] = xs.unsqueeze(-1).expand(A, L, B)
+                x2 = ys.unsqueeze(-1).expand(A, L, B).contiguous()
+                e = held_to_plain(
+                    lambda st: (step.aff1s_ip(spec, cs, st, x2, s0), st)[1],
+                    lambda st: (st[s0:s0 + A].copy_(step._muladd1_cols(
+                        spec, cs.unsqueeze(-1), st[s0:s0 + A], x2)), st)[1],
+                    state, s0, A)
+                got = state.clone()
+                step.aff1s_ip(spec, cs, got, x2, s0)
+                dec = fd.decode(spec, got[s0:s0 + A, :, 0])
+                check(all(int(dec[q]) == (x + c * y) % spec.p
+                          for q, (x, c, y) in enumerate(rows)),
+                      f"aff1s on the word edge values vs ints ({spec.name})")
+                err = max(err, e)
+                log(f"aff1s_ip word edges, {spec.name}, B={B}: "
+                    f"max |kernel - plain| = {e}")
+                continue
+            for halves, kinds in (((64, 1, 64), (0, 0, 1)),
+                                  ((32, 2, 16), (1, 0, 1))):
+                h = halves[0]
+                cw = rand_limbs((len(halves), A), gen, spec)
+                aw = rand_limbs((sum(kinds), A), gen, spec)
+                win = state[s0:s0 + A]
+                firsts = [r for r in range(A) if not r & h]
+                for i, r in enumerate(firsts):  # level 1 computes x + c·y
+                    x, c, y = tri[i % len(tri)]
+                    win[r] = int_limbs([x]).T
+                    win[r ^ h] = int_limbs([y]).T
+                    cw[0, r] = int_limbs([c])[0]
+                    if kinds[0]:  # 1·x + c·y, and M·y + M·x at r ^ h
+                        aw[0, r] = int_limbs([1])[0]
+                        aw[0, r ^ h] = cw[0, r ^ h] = int_limbs(
+                            [(1 << 256) - 1])[0]
+                e = held_to_plain(
+                    lambda st: (unrolled.fused_cascade(
+                        spec, st, cw, aw, s0, halves, kinds), st)[1],
+                    lambda st: (unrolled._cascade_plain(
+                        spec, st, cw, aw, s0, halves, kinds), st)[1],
+                    state, s0, A)
+                err = max(err, e)
+                log(f"fused_cascade word edges, {spec.name}, B={B}, "
+                    f"levels {halves} kinds {kinds}: max |kernel - plain| "
+                    f"= {e}")
+    return err
 
 
 def plain_vs_ints(kind, coeffs, state, x1, x2, start):
@@ -595,11 +726,12 @@ def main() -> int:
         native_library()
         log(f"native engine built in {time.perf_counter() - t0:.3f} s")
         SASS = kernel_sass(lib._name)
-        nz = sum(1 for v in step._field(SPEC).f if v)
         for k in KERNELS:
             if k != "fused_cascade":
-                log(f"{k}: one thread issues "
-                    f"{sass_count.thread_counts(SASS[k], FOLD_ROUNDS, nz)}")
+                per = sass_count.thread_counts(SASS[k], FOLD_ROUNDS,
+                                               fold_nonzero(k))
+                log(f"{k}: one thread issues {per}")
+        nz = fold_nonzero("fused_cascade")
         base = sass_count.thread_counts(SASS["fused_cascade"], FOLD_ROUNDS, nz)
         for kind in (0, 1):
             one = sass_count.thread_counts(SASS["fused_cascade"],

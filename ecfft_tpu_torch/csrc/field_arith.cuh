@@ -1,5 +1,7 @@
-// Field arithmetic shared by the port's CUDA kernels (step_kernels.cu,
-// fused_kernels.cu): 16-limb elements of 16 bits for a fold-friendly prime.
+// Field arithmetic on 16-bit limbs, shared by the port's CUDA kernels that
+// word_arith.cuh does not serve yet (step_kernel<1>/<2> in step_kernels.cu,
+// bf_kernel in fused_kernels.cu): 16-limb elements of 16 bits for a
+// fold-friendly prime.
 //
 // An element is NL = 16 limbs held in 32-bit words. A product of two
 // elements is 32 columns of 64 bits (each below 2*16*2^32), filled by
@@ -14,16 +16,9 @@
 
 #include <cstdint>
 
-constexpr int NL = 16;          // limbs per element, 16 bits each
-constexpr int NC = 2 * NL + 1;  // limbs of an unreduced sum of products
+#include "word_arith.cuh"  // NL and struct Field, shared with the word kernels
 
-// The field's constants, passed by value as a kernel parameter (the
-// layout of step.py's _Field).
-struct Field {
-  uint32_t p[NL];  // p's 16-bit limbs
-  uint32_t f[NL];  // limbs of F = 2^(16*NL) mod p; they sum below 2^10
-  int slack;       // 16*NL - bit length of p
-};
+constexpr int NC = 2 * NL + 1;  // limbs of an unreduced sum of products
 
 namespace {
 

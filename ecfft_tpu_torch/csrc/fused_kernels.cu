@@ -13,18 +13,20 @@
 //                        (unrolled.py:200)
 //
 // with (A, L) coefficient rows per level indexed by the window row t -
-// start. The field arithmetic is field_arith.cuh's.
+// start. The pair levels' field arithmetic is field_arith.cuh's (16-bit
+// limbs), the cascade's word_arith.cuh's (32-bit words).
 //
 // What bounds it on the H100. A pair level reads each window row once and
 // writes it once: 128 bytes per element, 2.15 GB at (A 65536, B 256), 0.64
-// ms at 3.35 TB/s. It runs the multiply-adds and reductions of an aff1
-// (aff2) step per element: a thread issues about 2250 (bf1) and 3040
-// (bf2) instructions for its two elements, 0.56 and 0.76 ms at 132 SMs x
-// 128 issue lanes x 1.98 GHz. So bf1 is bound by the bytes, bf2 by the
-// issue rate. A cascade moves the same 128 bytes per element plus 64
-// bytes of coefficients per row and level, for up to 14 levels of that
-// arithmetic (about 950 instructions per element per 1-mul level): it is
-// bound by the issue rate, ten times over the bytes.
+// ms at 3.35 TB/s, against about 0.1 ms of word products: bound by the
+// bytes. A cascade moves the same 128 bytes per element once for the whole
+// run, plus 64 bytes of coefficients per row and level, and needs a 1-mul
+// (2-mul) level's 64 (128) word products and about 20 more for the fold
+// per element and level: 14 levels are about 1.2 ms of word products at
+// the IMAD.WIDE rate against 0.66 ms of bytes, so its function is bound
+// by the operations. A design issues several instructions per word
+// product (the carries, the fold, shared memory), so in practice a
+// cascade runs well above that bound, limited by the issue rate.
 //
 // The designs. Pair levels: one thread per (pair, lane). It loads both
 // elements of its pair (stride B, so a warp's loads are coalesced across
@@ -32,14 +34,23 @@
 // product columns live at a time) and stores both. Each element is read and
 // written by exactly one thread, so the in-place update is race-free: the
 // pairs partition the window. The partner is the global xor t ^ h, which the
-// wrapper checks lands at t + h (start % 2h == 0). Cascades: one block per
-// (tile of TW <= 128 rows, group of CL = 4 lanes), the tile in shared
-// memory for the whole run. Per level each thread computes its elements from
-// its row and row r ^ h, all threads synchronise, write, and synchronise
-// again. The tile goes in from device memory once and out once per run;
-// each level's coefficient rows come from device memory (a broadcast to
-// the lanes of a row). A tile row is padded by CL words so that a warp's
-// eight rows fall on distinct banks.
+// wrapper checks lands at t + h (start % 2h == 0).
+//
+// Cascades: one block of CT = 512 threads per (tile of TW <= 128 rows,
+// group of CL = 4 lanes), one thread per element of the tile. The tile
+// lives in shared memory for the whole run, packed into 32-bit words on
+// the way in and unpacked on the way out, in two copies (ping-pong): a
+// level reads copy `cur` (its row and row r ^ h) and writes copy cur ^ 1,
+// so one barrier per level keeps the next level from reading a row before
+// it is written and from overwriting a row still being read. Each level's
+// coefficient rows come from device memory (a broadcast to the lanes of a
+// row), loaded and packed before the barrier that precedes the level, so
+// the loads overlap the wait. A tile row is RS = 36 words: a warp's 8 rows
+// x 4 lanes fall on 32 distinct banks, for its own rows and for the rows
+// r ^ h alike. 2 x 128 x 36 x 4 = 36,864 bytes of shared memory and at
+// most 64 registers a thread: two blocks (32 warps) per SM, at the price of
+// a few spilled words, which cost less than the warps a larger register
+// budget would take away (PERF.md, findings).
 //
 // The kernels allocate nothing and launch on the caller's stream; each
 // launcher returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -48,13 +59,13 @@
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
+#include "word_arith.cuh"
 
 constexpr int BF_THREADS = 256;
-constexpr int CT = 256;                    // cascade threads per block
 constexpr int CL = 4;                      // lanes per cascade block
 constexpr int MAX_TW = 128;                // largest cascade tile
-constexpr int EPT = MAX_TW * CL / CT;      // cascade elements per thread
-constexpr int RS = NL * CL + CL;           // shared words per tile row
+constexpr int CT = MAX_TW * CL;            // cascade threads: one an element
+constexpr int RS = NW * CL + CL;           // shared words per tile row
 constexpr int MAX_LEVELS = 16;             // cascade levels per launch
 
 // A cascade's levels, passed by value (the layout of unrolled.py's
@@ -124,65 +135,79 @@ bf_kernel(Field fd, const int32_t* __restrict__ aw,
   store_el(pp, B, res);
 }
 
-__global__ void __launch_bounds__(CT)
+// The coefficient rows of level li for window row q: C (and A, for a
+// kind-1 level, at its index ai among the kind-1 levels) as words.
+__device__ __forceinline__ void level_rows(const Levels& lv, int li, int ai,
+                                           const int32_t* __restrict__ cw,
+                                           const int32_t* __restrict__ aw,
+                                           int64_t q, int A,
+                                           uint32_t (&c)[NW],
+                                           uint32_t (&a)[NW]) {
+  uint32_t l[NL];
+  const int32_t* cr = cw + (static_cast<int64_t>(li) * A + q) * NL;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) l[j] = static_cast<uint32_t>(__ldg(cr + j));
+  wa::pack(l, c);
+  if (lv.kind[li]) {
+    const int32_t* ar = aw + (static_cast<int64_t>(ai) * A + q) * NL;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) l[j] = static_cast<uint32_t>(__ldg(ar + j));
+    wa::pack(l, a);
+  }
+}
+
+__global__ void __launch_bounds__(CT, 2)
 cascade_kernel(Field fd, Levels lv, const int32_t* __restrict__ cw,
                const int32_t* __restrict__ aw, int32_t* state, int start,
                int tw, int A, int B) {
-  __shared__ uint32_t tile[MAX_TW * RS];
+  __shared__ uint32_t tile[2][MAX_TW * RS];
   const int groups = (B + CL - 1) / CL;
   const int g = blockIdx.x / groups;       // the tile within the window
   const int b0 = (blockIdx.x - g * groups) * CL;
+  const int r = threadIdx.x / CL, l = threadIdx.x % CL;  // this element
+  const bool live = r < tw && b0 + l < B;
+  const int64_t q = static_cast<int64_t>(g) * tw + r;    // its window row
   const int64_t LB = static_cast<int64_t>(NL) * B;
-  int32_t* base = state + (start + static_cast<int64_t>(g) * tw) * LB + b0;
-  const int tid = threadIdx.x;
-  const int words = tw * NL * CL;
-  // in: consecutive threads take consecutive lanes, then limbs, then rows
-  for (int w = tid; w < words; w += CT) {
-    const int l = w % CL, j = (w / CL) % NL, r = w / (CL * NL);
-    tile[r * RS + j * CL + l] =
-        b0 + l < B ? static_cast<uint32_t>(base[r * LB + j * B + l]) : 0u;
+  int32_t* el = state + (start + q) * LB + b0 + l;
+  uint32_t c[NW], a[NW];
+  if (live) {
+    uint32_t x[NW];
+    wa::load_words(el, B, x);
+#pragma unroll
+    for (int k = 0; k < NW; ++k) tile[0][r * RS + k * CL + l] = x[k];
+    level_rows(lv, 0, 0, cw, aw, q, A, c, a);
   }
   __syncthreads();
-  int ai = 0;
+  int cur = 0, ai = 0;
   for (int li = 0; li < lv.k; ++li) {
-    const int h = lv.half[li];
     const bool two = lv.kind[li] != 0;
-    uint32_t res[EPT][NL];
+    if (live) {
+      const uint32_t* t = tile[cur];
+      const int rp = r ^ lv.half[li];
+      uint32_t x[NW], xp[NW], v[NV];
 #pragma unroll
-    for (int s = 0; s < EPT; ++s) {
-      const int e = tid + s * CT;
-      if (e < tw * CL) {
-        const int r = e / CL, l = e % CL;
-        uint32_t x[NL], xp[NL];
-#pragma unroll
-        for (int j = 0; j < NL; ++j) {
-          x[j] = tile[r * RS + j * CL + l];
-          xp[j] = tile[(r ^ h) * RS + j * CL + l];
-        }
-        const int64_t q = static_cast<int64_t>(g) * tw + r;  // window row
-        const int32_t* c = cw + (static_cast<int64_t>(li) * A + q) * NL;
-        const int32_t* a = aw + (static_cast<int64_t>(ai) * A + q) * NL;
-        update(fd, two, a, c, x, xp, res[s]);
+      for (int k = 0; k < NW; ++k) {
+        x[k] = t[r * RS + k * CL + l];
+        xp[k] = t[rp * RS + k * CL + l];
       }
-    }
-    __syncthreads();
+      if (two)
+        wa::mul_add2(a, x, c, xp, v);
+      else
+        wa::mul_add(c, xp, x, v);
+      wa::reduce(fd, v, x);
 #pragma unroll
-    for (int s = 0; s < EPT; ++s) {
-      const int e = tid + s * CT;
-      if (e < tw * CL) {
-        const int r = e / CL, l = e % CL;
-#pragma unroll
-        for (int j = 0; j < NL; ++j) tile[r * RS + j * CL + l] = res[s][j];
-      }
+      for (int k = 0; k < NW; ++k) tile[cur ^ 1][r * RS + k * CL + l] = x[k];
     }
-    __syncthreads();
     ai += two;
+    if (live && li + 1 < lv.k) level_rows(lv, li + 1, ai, cw, aw, q, A, c, a);
+    __syncthreads();
+    cur ^= 1;
   }
-  for (int w = tid; w < words; w += CT) {
-    const int l = w % CL, j = (w / CL) % NL, r = w / (CL * NL);
-    if (b0 + l < B)
-      base[r * LB + j * B + l] =
-          static_cast<int32_t>(tile[r * RS + j * CL + l]);
+  if (live) {  // from the tile: no value stays in registers across a level
+    uint32_t x[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) x[k] = tile[cur][r * RS + k * CL + l];
+    wa::store_words(el, B, x);
   }
 }
 

@@ -18,29 +18,31 @@
 // in-place kernels take gathered windows in buffers of their own. The
 // muladd pair writes rows [s, s + A) of `out`: a buffer of its own, or the
 // state itself, where x1 may be the very window it writes (each thread
-// reads the one element it then overwrites, as aff1s does). The field
-// arithmetic is field_arith.cuh's.
+// reads the one element it then overwrites, as aff1s does).
 //
 // What bounds it on the H100. Per output element a step moves 192 bytes
 // (16 limbs each of x2 and x1 in, 16 out; the coefficient rows are read
-// once per row, a broadcast to the lanes) and runs 256 (aff1) or 512
-// (aff2) 32x32->64-bit multiply-adds plus the carries and the fold: a
-// thread issues about 1040 (aff1) and 1300 (aff2) instructions, a third
-// (aff1) or a half (aff2) of them on the FMA pipe. At 132 SMs x 128 issue
-// lanes x 1.98 GHz that is 0.52 and 0.65 ms at A 65536, B 256, against
-// 0.96 ms of bytes at 3.35 TB/s: the memory bound binds, and the separate
+// once per row, a broadcast to the lanes): 0.96 ms at A 65536, B 256 at
+// 3.35 TB/s. The function's work is one (aff1) or two (aff2) products of
+// 8-word values, 64 32x32->64-bit word products each, plus the fold's
+// products by F's nonzero words: about 0.1 ms at that shape at the
+// IMAD.WIDE rate. So every step is bound by its bytes; the separate
 // gathers add 128 bytes per element of pure movement.
 //
-// The simple design: one thread per output element (q, b). In the batch-
-// minor layout neighbouring threads of a warp are neighbouring lanes b, so
-// each limb load and store is one coalesced 128-byte line; the coefficient
-// row of q is the same address for the whole warp (a broadcast). The 32
-// product columns live in 64-bit registers (each is below 2*16*2^32), so
-// the multiply-adds need no carries inside the loop. A later design would
-// pack the limbs into 8 x 32-bit words (a quarter of the multiplies) and
-// fuse the gathers; the gathered windows stay separate buffers here
-// because the in-place write races with a fused gather's butterfly
-// partner.
+// Two designs. aff1s_kernel (the self-read step, on 32-bit words,
+// word_arith.cuh): one thread per element (q, b); it issues all 48 of its
+// loads (16 limbs each of x2, its own state element and the coefficient
+// row) before the first multiply, so that a warp keeps them in flight
+// together, packs them into words, runs one 8x8-word product and the word
+// fold, and stores. step_kernel<1>/<2> (aff1g, aff2g and the muladd pair,
+// on 16-bit limbs, field_arith.cuh): one thread per element, 32 product
+// columns in 64-bit registers (each below 2*16*2^32), so the multiply-adds
+// need no carries inside the loop. In the batch-minor layout neighbouring
+// threads of a warp are neighbouring lanes b, so each limb load and store
+// is one coalesced 128-byte line; the coefficient row of q is the same
+// address for the whole warp (a broadcast). The gathered windows stay
+// separate buffers because the in-place write races with a fused gather's
+// butterfly partner.
 //
 // The muladd pair is aff1g's and aff2g's kernel with an output of the
 // caller's choosing as its "state": the same bytes, the same design.
@@ -51,15 +53,51 @@
 #include <cuda_runtime.h>
 
 #include "field_arith.cuh"
+#include "word_arith.cuh"
 
 constexpr int THREADS = 256;
 
 namespace {
 
-// KIND 0: x1 is the state element itself (aff1s); 1: x1 + C*x2 (aff1g,
-// muladd1); 2: A*x1 + B*x2 (aff2g, muladd2). The window is rows [start,
-// start + A) of `state`: the schedule's state in place, or (start 0) a
-// buffer of its own.
+// blocks of THREADS threads for one thread per element of an A x B window
+unsigned blocks_for(int A, int B) {
+  return static_cast<unsigned>(
+      (static_cast<int64_t>(A) * B + THREADS - 1) / THREADS);
+}
+
+// state[s+q] <- state[s+q] + C[q]*x2[q] on 32-bit words. At most 64
+// registers a thread (four 256-thread blocks per SM).
+__global__ void __launch_bounds__(THREADS, 4)
+aff1s_kernel(Field fd, const int32_t* __restrict__ c,
+             const int32_t* __restrict__ x2, int32_t* state, int start, int A,
+             int B) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (e >= static_cast<int64_t>(A) * B) return;  // the ragged edge
+  const int64_t q = e / B;
+  const int64_t b = e - q * B;
+  const int64_t LB = static_cast<int64_t>(NL) * B;
+  int32_t* st = state + (start + q) * LB + b;
+  const int32_t* xq = x2 + q * LB + b;
+  const int32_t* cq = c + q * NL;
+  uint32_t ls[NL], lx[NL], lc[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    ls[j] = static_cast<uint32_t>(st[j * B]);
+    lx[j] = static_cast<uint32_t>(__ldg(xq + j * B));
+    lc[j] = static_cast<uint32_t>(__ldg(cq + j));
+  }
+  uint32_t ws[NW], wx[NW], wc[NW], v[NV];
+  wa::pack(ls, ws);
+  wa::pack(lx, wx);
+  wa::pack(lc, wc);
+  wa::mul_add(wc, wx, ws, v);
+  wa::reduce(fd, v, ws);
+  wa::store_words(st, B, ws);
+}
+
+// KIND 1: x1 + C*x2 (aff1g, muladd1); 2: A*x1 + B*x2 (aff2g, muladd2).
+// The window is rows [start, start + A) of `state`: the schedule's state
+// in place, or (start 0) a buffer of its own.
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 step_kernel(Field fd, const int32_t* __restrict__ ca,
@@ -79,7 +117,7 @@ step_kernel(Field fd, const int32_t* __restrict__ ca,
   if (KIND == 2) {
     mac(col, ca + q * NL, x1 + q * LB + b, B);
   } else {
-    const int32_t* w1 = KIND == 0 ? st : x1 + q * LB + b;
+    const int32_t* w1 = x1 + q * LB + b;
 #pragma unroll
     for (int j = 0; j < NL; ++j) col[j] += static_cast<uint32_t>(w1[j * B]);
   }
@@ -93,9 +131,8 @@ template <int KIND>
 int launch(const Field* fd, const int32_t* ca, const int32_t* cb,
            int32_t* state, const int32_t* x1, const int32_t* x2, int start,
            int A, int B, void* stream) {
-  const int64_t n = static_cast<int64_t>(A) * B;
-  const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
-  step_kernel<KIND><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  step_kernel<KIND><<<blocks_for(A, B), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       *fd, ca, cb, state, x1, x2, start, A, B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -106,7 +143,10 @@ extern "C" {
 
 int ecfft_aff1s_ip(const Field* fd, const int32_t* c, const int32_t* x2,
                    int32_t* state, int start, int A, int B, void* stream) {
-  return launch<0>(fd, nullptr, c, state, nullptr, x2, start, A, B, stream);
+  aff1s_kernel<<<blocks_for(A, B), THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(*fd, c, x2, state,
+                                                      start, A, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int ecfft_aff1g_ip(const Field* fd, const int32_t* c, const int32_t* x1,

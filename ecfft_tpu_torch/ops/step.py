@@ -42,6 +42,7 @@ from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec
 
 KERNEL_LIMBS = 16  # the kernels' compile-time limb count
+KERNEL_WORDS = 8  # the same element in 32-bit words (csrc/word_arith.cuh)
 
 
 # ------------------------------------------------------- plain versions
@@ -97,16 +98,19 @@ def load_kernels() -> ctypes.CDLL:
 
 
 class _Field(ctypes.Structure):
-    """Mirror of ``struct Field`` in csrc/field_arith.cuh."""
+    """Mirror of ``struct Field`` in csrc/word_arith.cuh."""
     _fields_ = [("p", ctypes.c_uint32 * KERNEL_LIMBS),
                 ("f", ctypes.c_uint32 * KERNEL_LIMBS),
-                ("slack", ctypes.c_int)]
+                ("slack", ctypes.c_int),
+                ("pw", ctypes.c_uint32 * KERNEL_WORDS),
+                ("fw", ctypes.c_uint32 * KERNEL_WORDS)]
 
 
 @functools.lru_cache(maxsize=None)
 def _field(spec: FieldSpec) -> _Field:
     """The kernels' field constants: p's limbs, the limbs of the fold
-    multiplier F = 2^(16L) mod p, and the slack 16L − bitlen(p)."""
+    multiplier F = 2^(16L) mod p, the slack 16L − bitlen(p), and p and F
+    in 32-bit words."""
     L = spec.num_limbs
     if (L != KERNEL_LIMBS or spec.limb_bits != 16 or spec.fold_terms is None
             or sum(d for _, d in spec.fold_terms) >= 1 << 10):
@@ -118,8 +122,14 @@ def _field(spec: FieldSpec) -> _Field:
     f = [0] * L
     for off, digit in spec.fold_terms:
         f[off] += digit
+    F = spec.from_limbs(f)
+    words = ctypes.c_uint32 * KERNEL_WORDS
     return _Field((ctypes.c_uint32 * L)(*spec.to_limbs(spec.p)),
-                  (ctypes.c_uint32 * L)(*f), 16 * L - spec.p.bit_length())
+                  (ctypes.c_uint32 * L)(*f), 16 * L - spec.p.bit_length(),
+                  words(*((spec.p >> 32 * k) & 0xFFFFFFFF
+                          for k in range(KERNEL_WORDS))),
+                  words(*((F >> 32 * k) & 0xFFFFFFFF
+                          for k in range(KERNEL_WORDS))))
 
 
 def launch(name: str, spec: FieldSpec, device, *args) -> None:

@@ -210,6 +210,45 @@ def test_unrolled_enter_exit_on_card_match_cpu(card, monkeypatch, runs):
     assert all(a > b for a, b in zip(after, counts)), (counts, after)
 
 
+@pytest.mark.parametrize("B", [1, 5])
+def test_word_kernels_on_a_prime_with_slack(card, B):
+    """aff1s and the cascade (32-bit words) for 2^255 − 19 against their
+    plain versions, with every window value and coefficient p − 1."""
+    spec = spec_for_prime(2**255 - 19)
+    gen = torch.Generator().manual_seed(11 + B)
+
+    def limbs(*shape):
+        x = torch.randint(0, 1 << 16, (*shape, L), generator=gen,
+                          dtype=torch.int32)
+        x[..., -1] = torch.randint(0, 1 << 15, shape, generator=gen,
+                                   dtype=torch.int32)
+        return x
+
+    top = torch.tensor(spec.to_limbs(spec.p - 1), dtype=torch.int32)
+    W, A, start = 512, 256, 128
+    for fill in (False, True):
+        state = limbs(W, B).permute(0, 2, 1).contiguous()
+        x2 = limbs(A, B).permute(0, 2, 1).contiguous()
+        c, cw, aw = limbs(A), limbs(3, A), limbs(1, A)
+        if fill:
+            for t in (state[start:start + A], x2):
+                t.copy_(top[:, None].expand_as(t))
+            for t in (c, cw, aw):
+                t.copy_(top.expand_as(t))
+        for form in ("aff1s", "cascade"):
+            want, got = state.clone(), state.to(card)
+            if form == "aff1s":
+                step.aff1s_ip(spec, c, want, x2, start)
+                step.aff1s_ip(spec, c.to(card), got, x2.to(card), start)
+            else:
+                args = (start, (64, 1, 16), (0, 1, 0))
+                unrolled.fused_cascade(spec, want, cw, aw, *args)
+                unrolled.fused_cascade(spec, got, cw.to(card), aw.to(card),
+                                       *args)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+
+
 def test_unported_field_raises_on_card(card):
     spec = spec_for_prime(
         0x0800000000000011000000000000000000000000000000000000000000000001)

@@ -1,7 +1,11 @@
 """tools/sass_count.py on small hand-written SASS: the path one thread
 takes through a two-way branch around a slow-path call, a fold loop with
 skippable blocks, and a cascade's level loop with a two-way branch per
-level kind. Counts are exact."""
+level kind; and the shapes of the kernels on 32-bit words: a fold loop
+behind a guard followed by the subtraction loop, and a ping-pong
+cascade's level loop (one barrier, the element behind a guard, the fold
+loop nested in it, the next level's A rows in a skippable block). Counts
+are exact."""
 
 import pytest
 
@@ -56,6 +60,83 @@ CASCADE = ["S2R R0, SR_TID.X",          # 0
            "@P2 BRA @1>",
            "EXIT",
            "BRA @12>"]
+
+
+WORD_STEP = ["ISETP.GE.AND P0, PT, R0, c[0x0][0x0], PT",  # 0
+             "@P0 EXIT",
+             "LDG.E R2, desc[UR4][R8.64]",                 # 2: loads first
+             "LDG.E R3, desc[UR4][R10.64]",
+             "IMAD.WIDE.U32 R4, R2, R3, R4",               # 4: the product
+             "IADD3 R5, P1, R5, R6, RZ",
+             "@!P1 BRA @34>",                              # 6: fold guard
+             "LOP3.LUT R9, R9, R10, RZ, 0xfc, !PT"]        # 7: fold loop
+for blk in range(8):  # 8 + 3·blk: one block per word of F
+    WORD_STEP += [f"@!P{blk % 7} BRA @{11 + 3 * blk}>",
+                  "IMAD.WIDE.U32 R10, R11, R12, R10",
+                  "IMAD.WIDE.U32 R12, R11, R13, R12"]
+WORD_STEP += ["IADD3 R9, R9, 0x1, RZ",                      # 32
+              "@P0 BRA @7>",                                # 33: back edge
+              "IADD3 R14, P2, R14, -R15, RZ",               # 34: subtract
+              "SEL R14, R14, R16, P2",
+              "@P3 BRA @34>",                               # 36: slack loop
+              "STG.E desc[UR4][R8.64], R14",
+              "EXIT",
+              "BRA @39>"]
+
+WORD_CASCADE = ["S2R R0, SR_TID.X",                        # 0
+                "BAR.SYNC.DEFER_BLOCKING 0x0",              # 1: tile in
+                "ISETP.NE.AND P3, PT, R2, RZ, PT",          # 2: level loop
+                "@!P0 BRA @37>",                            # 3: element guard
+                "LDS R1, [R0]",
+                "ISETP.NE.AND P1, PT, R2, RZ, PT",
+                "@P1 BRA @9>",                              # 6: level kind
+                "IMAD.WIDE.U32 R4, R1, R5, R4",             # 7: 1-mul side
+                "BRA @11>",
+                "IMAD.WIDE.U32 R4, R1, R5, R4",             # 9: 2-mul side
+                "IMAD.WIDE.U32 R6, R1, R7, R6",
+                "LOP3.LUT R9, R9, R10, RZ, 0xfc, !PT"]      # 11: fold loop
+for blk in range(8):  # 12 + 3·blk
+    WORD_CASCADE += [f"@!P{blk % 7} BRA @{15 + 3 * blk}>",
+                     "IMAD.WIDE.U32 R10, R11, R12, R10",
+                     "IMAD.WIDE.U32 R12, R11, R13, R12"]
+WORD_CASCADE += ["@P4 BRA @11>",                            # 36: back edge
+                 "STS [R0], R1",                            # 37
+                 "@!P5 BRA @41>",                           # 38: next A rows
+                 "LDG.E.CONSTANT R20, desc[UR4][R22.64]",
+                 "LDG.E.CONSTANT R21, desc[UR4][R22.64+0x4]",
+                 "BAR.SYNC.DEFER_BLOCKING 0x0",             # 41: one barrier
+                 "@P2 BRA @2>",                             # 42: back edge
+                 "LDS R1, [R0]",                            # 43: tile out
+                 "STG.E desc[UR4][R8.64], R1",
+                 "EXIT",
+                 "BRA @46>"]
+
+
+def test_word_step_runs_the_guarded_fold_then_the_subtraction_once():
+    (insts,) = sass_count.functions(_sass("aff1s", WORD_STEP)).values()
+    got = sass_count.thread_counts(insts, rounds=2, nz=2)
+    # outside the loops: ISETP, EXIT, 2 LDGs, IMAD.WIDE, IADD3, the guard;
+    # STG, EXIT. Each of 2 fold rounds: LOP3, 8 BRAs, 2 of 8 blocks of 2
+    # IMAD.WIDEs, IADD3, the back edge. The subtraction loop once: IADD3,
+    # SEL, its back edge
+    assert got == {"fma": 1 + 2 * 4, "alu": 2 + 2 * 2 + 2,
+                   "all": 7 + 2 * 15 + 3 + 2}
+
+
+@pytest.mark.parametrize("kinds,want", [
+    ((), {"fma": 0, "alu": 0, "all": 5}),
+    ((0,), {"fma": 9, "alu": 4, "all": 44}),
+    ((1,), {"fma": 10, "alu": 4, "all": 44}),
+    ((0, 1, 0), {"fma": 28, "alu": 12, "all": 122})])
+def test_word_cascade_level_runs_element_fold_and_one_barrier(kinds, want):
+    """Per level: ISETP, the guard (falls through), LDS, ISETP, the kind's
+    branch and side (1 or 2 IMAD.WIDEs, 2 instructions), 2 fold rounds
+    (LOP3, 8 BRAs, 2 of 8 blocks of 2 IMAD.WIDEs, the back edge), STS,
+    the skipped A-row block's branch, BAR, the back edge. Outside: S2R,
+    BAR, LDS, STG, EXIT."""
+    (insts,) = sass_count.functions(_sass("cascade",
+                                          WORD_CASCADE)).values()
+    assert sass_count.thread_counts(insts, 2, 2, kinds) == want
 
 
 def test_step_path_takes_the_fast_division_and_nz_fold_blocks():

@@ -25,12 +25,14 @@ lower bound:
   instructions), else the shorter side;
 - a loop whose body skips eight or more branch-free blocks is the
   reduction's fold loop: it runs ``rounds`` times, and of its skipped
-  blocks (one per limb of the fold multiplier F) ``nz`` run each round,
-  one per nonzero limb of F;
+  blocks (one per digit of the fold multiplier F: 16 limbs in
+  field_arith.cuh, 8 words in word_arith.cuh) ``nz`` run each round, one
+  per nonzero digit of F;
 - a loop with a barrier in it is a cascade's level loop: it runs once
   per entry of ``kinds``, with that entry as ``kind``;
-- any other loop runs once, and any other branch-free block that a
-  branch can skip counts as skipped;
+- any other loop runs once (the subtraction of p·2^j for a prime with
+  no slack), and any other branch-free block that a branch can skip
+  counts as skipped (a cascade's A rows for a next level of kind 1);
 - a forward branch over code that holds branches (a guard around a loop
   or an element) falls through; an unconditional forward branch is
   followed; the walk ends at an unconditional ``EXIT`` or a backward
