@@ -16,11 +16,12 @@ stops the run with a non-zero exit:
 4. each of the eight kernels against its plain PyTorch version on the
    card, bit for bit: edge values and seeded random values at B = 1 and
    256 with rows outside the window untouched, then at the shapes the
-   main paths give it; the two on 32-bit words (aff1s, the cascade) also
-   on inputs that stress the word reduction, for secp256k1 and for
-   2^255 − 19; then each timed at its main shape (CUDA events, with the
-   SM clock and power draw read just after) beside its plain version,
-   its bound (bytes or word products) and this design's issue bound;
+   main paths give it; the four on 32-bit words (aff1s, the pair levels,
+   the cascade) also on inputs that stress the word reduction, for
+   secp256k1 and for 2^255 − 19; then each timed at its main shape (CUDA
+   events, with the SM clock and power draw read just after) beside its
+   plain version, its bound (bytes or word products) and this design's
+   issue bound;
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -98,10 +99,10 @@ UNROLLED_KERNELS = ("aff1s_ip", "muladd1", "muladd2", "fused_cascade",
 # words (word_arith.cuh), whose fold runs one block per word of F
 SASS_NAMES = {"aff1s_ip": "aff1s_kernel", "aff1g_ip": "step_kernelILi1E",
               "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
-              "muladd2": "step_kernelILi2E", "fused_bf1": "bf_kernelILb0E",
-              "fused_bf2": "bf_kernelILb1E",
+              "muladd2": "step_kernelILi2E", "fused_bf1": "pair_kernelILb0E",
+              "fused_bf2": "pair_kernelILb1E",
               "fused_cascade": "cascade_kernel"}
-WORD_KERNELS = ("aff1s_ip", "fused_cascade")
+WORD_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade")
 
 
 def log(*a):
@@ -205,11 +206,11 @@ def thread_work(kind, A, B, kinds=()):
     per nonzero digit of F in each)."""
     per = sass_count.thread_counts(SASS[kind], FOLD_ROUNDS,
                                    fold_nonzero(kind), kinds)
+    # one thread an element: a cascade's blocks are always full, and the
+    # idle threads of a pair level's ragged blocks issue next to nothing
     if kind == "fused_cascade":
         threads = (A // unrolled.TW) * -(-B // CASCADE_LANES) \
             * CASCADE_THREADS
-    elif kind in ("fused_bf1", "fused_bf2"):
-        threads = A // 2 * B  # a thread updates both rows of a pair
     else:
         threads = A * B
     return threads, per
@@ -510,11 +511,11 @@ def int_limbs(values) -> torch.Tensor:
 
 
 def word_edges(kind, gen) -> int:
-    """The redesigned kernels (aff1s, the cascade) against their plain
-    versions on :func:`word_edge_triples`, for secp256k1 and 2^255 − 19,
-    at B = 1 and 256; aff1s also against Python ints. Returns the largest
-    |kernel − plain|."""
-    A, s0, W, err = 512, 384, 1024, 0
+    """The kernels on 32-bit words (aff1s, the pair levels, the cascade)
+    against their plain versions on :func:`word_edge_triples`, for
+    secp256k1 and 2^255 − 19, at B = 1 and 256; aff1s and bf1 also against
+    Python ints. Returns the largest |kernel − plain|."""
+    A, s0, W, err = 512, 384, 1152, 0
     for spec in (SPEC, ED):
         tri = word_edge_triples(spec, random.Random(spec.p % 997))
         for B in (1, 256):
@@ -539,6 +540,10 @@ def word_edges(kind, gen) -> int:
                 err = max(err, e)
                 log(f"aff1s_ip word edges, {spec.name}, B={B}: "
                     f"max |kernel - plain| = {e}")
+                continue
+            if kind in ("fused_bf1", "fused_bf2"):
+                err = max(err, pair_word_edges(kind, spec, tri, state, A, B,
+                                               gen))
                 continue
             for halves, kinds in (((64, 1, 64), (0, 0, 1)),
                                   ((32, 2, 16), (1, 0, 1))):
@@ -567,6 +572,41 @@ def word_edges(kind, gen) -> int:
                     f"levels {halves} kinds {kinds}: max |kernel - plain| "
                     f"= {e}")
     return err
+
+
+def pair_word_edges(kind, spec, tri, state, A, B, gen) -> int:
+    """One pair level (half 128, window [512, 512 + A)) whose rows t with
+    t & half == 0 compute x + c·y (bf2: 1·x + c·y, and (2^256 − 1)·(y + x)
+    at t ^ half) on the word edge triples, against the plain version; bf1
+    also against Python ints. Returns max |kernel − plain|."""
+    h, s0, M = 128, 512, (1 << 256) - 1
+    two = kind == "fused_bf2"
+    cw, aw = rand_limbs((A,), gen, spec), rand_limbs((A,), gen, spec)
+    firsts = torch.tensor([r for r in range(A) if not r & h], device=DEV)
+    rows = [tri[i % len(tri)] for i in range(len(firsts))]
+    xs, cs, ys = (int_limbs([t[i] for t in rows]) for i in range(3))
+    win = state[s0:s0 + A]
+    win[firsts] = xs.unsqueeze(-1).expand(-1, L, B)
+    win[firsts ^ h] = ys.unsqueeze(-1).expand(-1, L, B)
+    cw[firsts] = cs
+    if two:
+        aw[firsts] = int_limbs([1])
+        aw[firsts ^ h] = cw[firsts ^ h] = int_limbs([M])
+    coeffs = (aw, cw) if two else (cw,)
+    e = held_to_plain(
+        lambda st: (WRAPPERS[kind](spec, st, *coeffs, s0, h), st)[1],
+        lambda st: (unrolled._pair_plain(spec, st, aw if two else None, cw,
+                                         s0, h), st)[1],
+        state, s0, A)
+    if not two:
+        got = state.clone()
+        unrolled.fused_bf1(spec, got, cw, s0, h)
+        dec = fd.decode(spec, got[s0:s0 + A, :, 0][firsts])
+        check(all(int(dec[i]) == (x + c * y) % spec.p
+                  for i, (x, c, y) in enumerate(rows)),
+              f"bf1 on the word edge values vs ints ({spec.name})")
+    log(f"{kind} word edges, {spec.name}, B={B}: max |kernel - plain| = {e}")
+    return e
 
 
 def plain_vs_ints(kind, coeffs, state, x1, x2, start):
@@ -731,6 +771,10 @@ def main() -> int:
                 per = sass_count.thread_counts(SASS[k], FOLD_ROUNDS,
                                                fold_nonzero(k))
                 log(f"{k}: one thread issues {per}")
+        for k in ("fused_bf1", "fused_bf2"):
+            ahead, loads = sass_count.loads_before_first_product(SASS[k])
+            log(f"{k}: {ahead} of its {loads} device loads stand ahead of "
+                f"the first IMAD.WIDE.U32")
         nz = fold_nonzero("fused_cascade")
         base = sass_count.thread_counts(SASS["fused_cascade"], FOLD_ROUNDS, nz)
         for kind in (0, 1):

@@ -1,7 +1,6 @@
-// Field arithmetic on 16-bit limbs, shared by the port's CUDA kernels that
-// word_arith.cuh does not serve yet (step_kernel<1>/<2> in step_kernels.cu,
-// bf_kernel in fused_kernels.cu): 16-limb elements of 16 bits for a
-// fold-friendly prime.
+// Field arithmetic on 16-bit limbs, for the port's CUDA kernels that
+// word_arith.cuh does not serve yet (step_kernel<1>/<2> in
+// step_kernels.cu): 16-limb elements of 16 bits for a fold-friendly prime.
 //
 // An element is NL = 16 limbs held in 32-bit words. A product of two
 // elements is 32 columns of 64 bits (each below 2*16*2^32), filled by
@@ -102,26 +101,6 @@ __device__ __forceinline__ void mac(uint64_t (&col)[2 * NL],
     for (int i = 0; i < NL; ++i)
       col[i + j] += static_cast<uint64_t>(c[i]) * xj;
   }
-}
-
-// col += coeff row (NL limbs at cq, global memory) x element x (registers)
-__device__ __forceinline__ void mac_r(uint64_t (&col)[2 * NL],
-                                      const int32_t* __restrict__ cq,
-                                      const uint32_t (&x)[NL]) {
-  uint32_t c[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) c[i] = static_cast<uint32_t>(__ldg(cq + i));
-#pragma unroll
-  for (int j = 0; j < NL; ++j) {
-#pragma unroll
-    for (int i = 0; i < NL; ++i)
-      col[i + j] += static_cast<uint64_t>(c[i]) * x[j];
-  }
-}
-
-__device__ __forceinline__ void zero_cols(uint64_t (&col)[2 * NL]) {
-#pragma unroll
-  for (int k = 0; k < 2 * NL; ++k) col[k] = 0;
 }
 
 }  // namespace

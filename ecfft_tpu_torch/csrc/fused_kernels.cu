@@ -13,8 +13,7 @@
 //                        (unrolled.py:200)
 //
 // with (A, L) coefficient rows per level indexed by the window row t -
-// start. The pair levels' field arithmetic is field_arith.cuh's (16-bit
-// limbs), the cascade's word_arith.cuh's (32-bit words).
+// start. All three run on word_arith.cuh's field arithmetic (32-bit words).
 //
 // What bounds it on the H100. A pair level reads each window row once and
 // writes it once: 128 bytes per element, 2.15 GB at (A 65536, B 256), 0.64
@@ -28,13 +27,26 @@
 // product (the carries, the fold, shared memory), so in practice a
 // cascade runs well above that bound, limited by the issue rate.
 //
-// The designs. Pair levels: one thread per (pair, lane). It loads both
-// elements of its pair (stride B, so a warp's loads are coalesced across
-// lanes), computes the two new values one after the other (one set of 32
-// product columns live at a time) and stores both. Each element is read and
-// written by exactly one thread, so the in-place update is race-free: the
-// pairs partition the window. The partner is the global xor t ^ h, which the
-// wrapper checks lands at t + h (start % 2h == 0).
+// The designs. Pair levels: one thread per element, so that a thread holds
+// few enough registers (48 in the 1-mul form, 80 in the 2-mul form) for ten
+// or six 128-thread blocks, 40 or 24 warps, to share an SM: the function
+// is bound by its bytes, and the warps are what keeps loads in flight. A
+// block holds both rows of BF_SIDE / lanes pairs for `lanes` neighbouring
+// lanes (lanes the smallest power of two >= B, at most BF_SIDE = 64):
+// threads [0, 64) the rows t, threads [64, 128) their partners t ^ h, so a
+// warp lies on one side and its limb loads are coalesced across lanes. A
+// thread issues all its loads (the 16 limbs of its element and of its one
+// or two coefficient rows, the rows a broadcast to the lanes) before the
+// first multiply, packs them into words, and writes its element's 8 words
+// to shared memory, word k of thread i at [k][i]: a warp's 32 threads fall
+// on 32 banks, storing and reading the partner's (thread i ^ 64) alike.
+// After the block's one barrier it reads its partner's words, computes its
+// one new value and stores it. A thread with no element (a ragged edge in
+// lanes or pairs) loads and stores nothing but reaches the barrier. Each
+// element is read from device memory and written by exactly one thread,
+// and the partner's value crosses in shared memory, so the in-place update
+// is race-free. The partner is the global xor t ^ h, which the wrapper
+// checks lands at t + h (start % 2h == 0).
 //
 // Cascades: one block of CT = 512 threads per (tile of TW <= 128 rows,
 // group of CL = 4 lanes), one thread per element of the tile. The tile
@@ -58,10 +70,10 @@
 
 #include <cuda_runtime.h>
 
-#include "field_arith.cuh"
 #include "word_arith.cuh"
 
-constexpr int BF_THREADS = 256;
+constexpr int BF_THREADS = 128;           // pair-level threads: one an element
+constexpr int BF_SIDE = BF_THREADS / 2;    // elements of each side of the pairs
 constexpr int CL = 4;                      // lanes per cascade block
 constexpr int MAX_TW = 128;                // largest cascade tile
 constexpr int CT = MAX_TW * CL;            // cascade threads: one an element
@@ -79,60 +91,57 @@ struct Levels {
 
 namespace {
 
-__device__ __forceinline__ void load_el(const int32_t* p, int B,
-                                        uint32_t (&x)[NL]) {
+// One coefficient row's 16 limbs, through the read-only path
+__device__ __forceinline__ void ldg_row(const int32_t* __restrict__ row,
+                                        uint32_t (&l)[NL]) {
 #pragma unroll
-  for (int j = 0; j < NL; ++j) x[j] = static_cast<uint32_t>(p[j * B]);
+  for (int j = 0; j < NL; ++j) l[j] = static_cast<uint32_t>(__ldg(row + j));
 }
 
-__device__ __forceinline__ void store_el(int32_t* p, int B,
-                                         const uint32_t (&x)[NL]) {
-#pragma unroll
-  for (int j = 0; j < NL; ++j) p[j * B] = static_cast<int32_t>(x[j]);
-}
-
-// out = x + c*xp (1-mul), or a*x + c*xp (2-mul)
-__device__ __forceinline__ void update(const Field& fd, bool two,
-                                       const int32_t* __restrict__ a,
-                                       const int32_t* __restrict__ c,
-                                       const uint32_t (&x)[NL],
-                                       const uint32_t (&xp)[NL],
-                                       uint32_t (&out)[NL]) {
-  uint64_t col[2 * NL];
-  zero_cols(col);
-  mac_r(col, c, xp);
-  if (two) {
-    mac_r(col, a, x);
-  } else {
-#pragma unroll
-    for (int j = 0; j < NL; ++j) col[j] += x[j];
-  }
-  reduce(fd, col, out);
-}
-
+// One pair level. TWO: x[t] <- A[t]*x[t] + C[t]*x[t^h]; else x[t] <- x[t] +
+// C[t]*x[t^h]. lg: log2 of the lanes a block holds; blockIdx.x counts the
+// groups of pairs, blockIdx.y the groups of lanes. No register cap: a cap
+// of 64 makes the 2-mul form spill and both forms slower (PERF.md,
+// findings).
 template <bool TWO>
 __global__ void __launch_bounds__(BF_THREADS)
-bf_kernel(Field fd, const int32_t* __restrict__ aw,
-          const int32_t* __restrict__ cw, int32_t* state, int start,
-          int half, int A, int B) {
-  const int64_t e =
-      static_cast<int64_t>(blockIdx.x) * BF_THREADS + threadIdx.x;
-  if (e >= static_cast<int64_t>(A / 2) * B) return;  // the ragged edge
-  const int64_t i = e / B;                 // the pair
-  const int64_t b = e - i * B;             // the lane
-  const int64_t rt = (i / half) * 2 * half + i % half;  // window row of t
-  const int64_t t = start + rt;
-  const int64_t rp = (t ^ half) - start;   // window row of the partner
-  const int64_t LB = static_cast<int64_t>(NL) * B;
-  int32_t* pt = state + t * LB + b;
-  int32_t* pp = state + (start + rp) * LB + b;
-  uint32_t xt[NL], xp[NL], res[NL];
-  load_el(pt, B, xt);
-  load_el(pp, B, xp);
-  update(fd, TWO, aw + rt * NL, cw + rt * NL, xt, xp, res);
-  store_el(pt, B, res);
-  update(fd, TWO, aw + rp * NL, cw + rp * NL, xp, xt, res);
-  store_el(pp, B, res);
+pair_kernel(Field fd, const int32_t* __restrict__ aw,
+            const int32_t* __restrict__ cw, int32_t* state, int start,
+            int half, int A, int B, int lg) {
+  __shared__ uint32_t xs[NW * BF_THREADS];
+  const int tid = threadIdx.x;
+  const int b = (blockIdx.y << lg) + (tid & ((1 << lg) - 1));
+  const int i = blockIdx.x * (BF_SIDE >> lg) + ((tid & (BF_SIDE - 1)) >> lg);
+  const bool live = i < A / 2 && b < B;
+  const int rt = (i / half) * 2 * half + i % half;  // window row of t
+  const int row = tid < BF_SIDE ? start + rt : (start + rt) ^ half;
+  const int64_t q = row - start;                    // this window row
+  int32_t* el = state + (static_cast<int64_t>(row) * NL) * B + b;
+  uint32_t x[NW], c[NW], a[NW];
+  if (live) {
+    uint32_t lx[NL], lc[NL], la[NL];
+#pragma unroll
+    for (int j = 0; j < NL; ++j)
+      lx[j] = static_cast<uint32_t>(el[static_cast<int64_t>(j) * B]);
+    ldg_row(cw + q * NL, lc);
+    if (TWO) ldg_row(aw + q * NL, la);
+    wa::pack(lx, x);
+    wa::pack(lc, c);
+    if (TWO) wa::pack(la, a);
+#pragma unroll
+    for (int k = 0; k < NW; ++k) xs[k * BF_THREADS + tid] = x[k];
+  }
+  __syncthreads();
+  if (!live) return;
+  uint32_t xp[NW], v[NV];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) xp[k] = xs[k * BF_THREADS + (tid ^ BF_SIDE)];
+  if (TWO)
+    wa::mul_add2(a, x, c, xp, v);
+  else
+    wa::mul_add(c, xp, x, v);
+  wa::reduce(fd, v, x);
+  wa::store_words(el, B, x);
 }
 
 // The coefficient rows of level li for window row q: C (and A, for a
@@ -144,14 +153,10 @@ __device__ __forceinline__ void level_rows(const Levels& lv, int li, int ai,
                                            uint32_t (&c)[NW],
                                            uint32_t (&a)[NW]) {
   uint32_t l[NL];
-  const int32_t* cr = cw + (static_cast<int64_t>(li) * A + q) * NL;
-#pragma unroll
-  for (int j = 0; j < NL; ++j) l[j] = static_cast<uint32_t>(__ldg(cr + j));
+  ldg_row(cw + (static_cast<int64_t>(li) * A + q) * NL, l);
   wa::pack(l, c);
   if (lv.kind[li]) {
-    const int32_t* ar = aw + (static_cast<int64_t>(ai) * A + q) * NL;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) l[j] = static_cast<uint32_t>(__ldg(ar + j));
+    ldg_row(aw + (static_cast<int64_t>(ai) * A + q) * NL, l);
     wa::pack(l, a);
   }
 }
@@ -216,12 +221,13 @@ int launch_bf(const Field* fd, const int32_t* a, const int32_t* c,
               int32_t* state, int start, int half, int A, int B,
               void* stream) {
   if (half <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = static_cast<int64_t>(A / 2) * B;
-  const unsigned blocks =
-      static_cast<unsigned>((n + BF_THREADS - 1) / BF_THREADS);
-  bf_kernel<TWO><<<blocks, BF_THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      *fd, a, c, state, start, half, A, B);
+  int lg = 0;  // lanes a block: the smallest power of two >= B, <= BF_SIDE
+  while ((1 << lg) < B && (1 << lg) < BF_SIDE) ++lg;
+  const int pairs = BF_SIDE >> lg;                  // pairs a block
+  const dim3 grid((A / 2 + pairs - 1) / pairs, (B + (1 << lg) - 1) >> lg);
+  pair_kernel<TWO><<<grid, BF_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      *fd, a, c, state, start, half, A, B, lg);
   return static_cast<int>(cudaGetLastError());
 }
 

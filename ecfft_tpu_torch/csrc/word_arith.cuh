@@ -1,5 +1,6 @@
 // Field arithmetic on 32-bit words, for the kernels redesigned for Hopper
-// (aff1s_kernel in step_kernels.cu, cascade_kernel in fused_kernels.cu).
+// (aff1s_kernel in step_kernels.cu, pair_kernel and cascade_kernel in
+// fused_kernels.cu).
 //
 // The state keeps an element as NL = 16 limbs of 16 bits, one per int32
 // (the layout every kernel shares). These functions pack it into NW = 8

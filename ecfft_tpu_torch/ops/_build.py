@@ -2,9 +2,10 @@
 
 Two libraries, each with a plain C interface opened through ctypes:
 
-- the kernels, from ``csrc/step_kernels.cu`` and ``csrc/fused_kernels.cu``
-  (both including ``csrc/field_arith.cuh`` and ``csrc/word_arith.cuh``),
-  for Hopper (``sm_90a``),
+- the kernels, from ``csrc/step_kernels.cu`` (which includes
+  ``csrc/field_arith.cuh`` and ``csrc/word_arith.cuh``) and
+  ``csrc/fused_kernels.cu`` (``csrc/word_arith.cuh``), for Hopper
+  (``sm_90a``),
   with ``torch.utils.cpp_extension.load`` (one call, all sources, which
   tracks the header through nvcc's dependency files) where ``ninja`` is
   installed, else with ``nvcc`` directly. The sources include no PyTorch

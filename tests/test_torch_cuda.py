@@ -144,7 +144,9 @@ def test_out_of_place_kernel_matches_plain_version(card, kind, B):
 
 
 # (form, TW, half or halves, kinds): pair levels one and two tiles apart,
-# and cascades of mixed kinds, at the production tile and at TW = 8
+# and cascades of mixed kinds, at the production tile and at TW = 8. A
+# pair-level block holds the smallest power of two of lanes >= B, up to
+# its own size: B = 200 leaves its last lane group ragged, B = 256 none
 FUSED = [("bf1", 128, 128, None), ("bf1", 128, 256, None),
          ("bf2", 128, 128, None), ("bf2", 128, 256, None),
          ("bf1", 8, 16, None), ("bf2", 8, 8, None),
@@ -153,7 +155,7 @@ FUSED = [("bf1", 128, 128, None), ("bf1", 128, 256, None),
          ("cascade", 8, (4, 1, 2), (1, 0, 1))]
 
 
-@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("B", [1, 5, 64, 200, 256])
 @pytest.mark.parametrize("form,tw,half,kinds", FUSED)
 def test_fused_kernel_matches_plain_version(card, monkeypatch, form, tw,
                                             half, kinds, B):
@@ -212,8 +214,9 @@ def test_unrolled_enter_exit_on_card_match_cpu(card, monkeypatch, runs):
 
 @pytest.mark.parametrize("B", [1, 5])
 def test_word_kernels_on_a_prime_with_slack(card, B):
-    """aff1s and the cascade (32-bit words) for 2^255 − 19 against their
-    plain versions, with every window value and coefficient p − 1."""
+    """aff1s, the pair levels and the cascade (32-bit words) for 2^255 −
+    19 against their plain versions, on random values and with every
+    window value and coefficient p − 1."""
     spec = spec_for_prime(2**255 - 19)
     gen = torch.Generator().manual_seed(11 + B)
 
@@ -226,27 +229,35 @@ def test_word_kernels_on_a_prime_with_slack(card, B):
 
     top = torch.tensor(spec.to_limbs(spec.p - 1), dtype=torch.int32)
     W, A, start = 512, 256, 128
+    pair_start = 256  # a pair level's window starts at a multiple of 2·half
     for fill in (False, True):
         state = limbs(W, B).permute(0, 2, 1).contiguous()
         x2 = limbs(A, B).permute(0, 2, 1).contiguous()
         c, cw, aw = limbs(A), limbs(3, A), limbs(1, A)
         if fill:
-            for t in (state[start:start + A], x2):
+            for t in (state[start:], x2):
                 t.copy_(top[:, None].expand_as(t))
             for t in (c, cw, aw):
                 t.copy_(top.expand_as(t))
-        for form in ("aff1s", "cascade"):
+        for form in ("aff1s", "bf1", "bf2", "cascade"):
             want, got = state.clone(), state.to(card)
             if form == "aff1s":
                 step.aff1s_ip(spec, c, want, x2, start)
                 step.aff1s_ip(spec, c.to(card), got, x2.to(card), start)
+            elif form == "bf1":
+                unrolled.fused_bf1(spec, want, c, pair_start, 128)
+                unrolled.fused_bf1(spec, got, c.to(card), pair_start, 128)
+            elif form == "bf2":
+                unrolled.fused_bf2(spec, want, aw[0], c, pair_start, 128)
+                unrolled.fused_bf2(spec, got, aw[0].to(card), c.to(card),
+                                   pair_start, 128)
             else:
                 args = (start, (64, 1, 16), (0, 1, 0))
                 unrolled.fused_cascade(spec, want, cw, aw, *args)
                 unrolled.fused_cascade(spec, got, cw.to(card), aw.to(card),
                                        *args)
             torch.cuda.synchronize()
-            assert torch.equal(got.cpu(), want)
+            assert torch.equal(got.cpu(), want), form
 
 
 def test_unported_field_raises_on_card(card):

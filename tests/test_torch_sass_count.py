@@ -4,8 +4,10 @@ skippable blocks, and a cascade's level loop with a two-way branch per
 level kind; and the shapes of the kernels on 32-bit words: a fold loop
 behind a guard followed by the subtraction loop, and a ping-pong
 cascade's level loop (one barrier, the element behind a guard, the fold
-loop nested in it, the next level's A rows in a skippable block). Counts
-are exact."""
+loop nested in it, the next level's A rows in a skippable block), and a
+pair level's kernel (its loads and shared stores behind the guard of the
+ragged edge, one barrier, the partner's words from shared memory, one or
+two word products, the fold and subtraction loops). Counts are exact."""
 
 import pytest
 
@@ -110,6 +112,65 @@ WORD_CASCADE += ["@P4 BRA @11>",                            # 36: back edge
                  "STG.E desc[UR4][R8.64], R1",
                  "EXIT",
                  "BRA @46>"]
+
+
+def _pair(two):
+    """A pair level's kernel, 1-mul or 2-mul: (lines, loads, products)."""
+    n = 2 if two else 1
+    head = ["S2R R0, SR_TID.X",                             # 0
+            "ISETP.GE.AND P0, PT, R0, c[0x0][0x0], PT",
+            None,                                           # 2: edge guard
+            "LDG.E R2, desc[UR4][R8.64]"]                   # its element
+    head += ["LDG.E.CONSTANT R3, desc[UR4][R10.64]"] * n    # coefficient rows
+    head += ["LOP3.LUT R2, R2, R3, RZ, 0xfc, !PT"] * (1 + n)  # pack
+    head += ["STS [R0], R2"]
+    head[2] = f"@P0 BRA @{len(head)}>"
+    body = ["BAR.SYNC.DEFER_BLOCKING 0x0",                  # the one barrier
+            "@P0 EXIT",
+            "LDS R4, [R0+0x200]"]                           # the partner
+    body += ["IMAD.WIDE.U32 R4, R2, R3, R4"] * n            # the products
+    body += ["IADD3 R5, P1, R5, R6, RZ", None]              # fold guard
+    at = len(head) + len(body)                              # fold loop
+    fold = ["LOP3.LUT R9, R9, R10, RZ, 0xfc, !PT"]
+    for blk in range(8):  # one block per word of F
+        fold += [f"@!P{blk % 7} BRA @{at + 4 + 3 * blk}>",
+                 "IMAD.WIDE.U32 R10, R11, R12, R10",
+                 "IMAD.WIDE.U32 R12, R11, R13, R12"]
+    fold += ["IADD3 R9, R9, 0x1, RZ", f"@P0 BRA @{at}>"]    # back edge
+    sub = at + len(fold)
+    body[-1] = f"@!P1 BRA @{sub}>"
+    tail = ["IADD3 R14, P2, R14, -R15, RZ",                 # subtract p·2^j
+            "SEL R14, R14, R16, P2",
+            f"@P3 BRA @{sub}>",                             # slack loop
+            "STG.E desc[UR4][R8.64], R14",
+            "EXIT",
+            f"BRA @{sub + 5}>"]
+    return head + body + fold + tail, 1 + n, n
+
+
+@pytest.mark.parametrize("two", [False, True])
+def test_pair_kernel_runs_its_guarded_loads_one_barrier_and_the_fold(two):
+    """The block behind the edge guard holds a shared store, so it runs:
+    LDGs, the packing LOP3s, STS. Then BAR, the idle threads' EXIT, LDS,
+    one or two IMAD.WIDEs, IADD3, the fold guard; 2 fold rounds (LOP3, 8
+    BRAs, 2 of 8 blocks of 2 IMAD.WIDEs, IADD3, the back edge); the
+    subtraction loop once (IADD3, SEL, its back edge); STG, EXIT."""
+    lines, loads, products = _pair(two)
+    (insts,) = sass_count.functions(_sass("pair", lines)).values()
+    got = sass_count.thread_counts(insts, rounds=2, nz=2)
+    assert got == {"fma": products + 2 * 4,
+                   "alu": 1 + loads + 1 + 2 * 2 + 2,
+                   "all": 3 + 2 * loads + 1 + 3 + products + 2
+                   + 2 * 15 + 3 + 2}
+    assert sass_count.loads_before_first_product(insts) == (loads, loads)
+
+
+def test_loads_before_first_product_stops_at_the_first_wide_multiply():
+    insts = sass_count.functions(_sass("k", [
+        "IMAD.WIDE R2, R0, 0x4, R2", "LDG.E R4, desc[UR4][R2.64]",
+        "IMAD.WIDE.U32 R6, R4, R5, R6", "LDG.E R8, desc[UR4][R2.64+0x4]",
+        "EXIT"]))["k"]
+    assert sass_count.loads_before_first_product(insts) == (1, 2)
 
 
 def test_word_step_runs_the_guarded_fold_then_the_subtraction_once():

@@ -7,12 +7,16 @@ commit unpacked into a directory (``step_kernels.cu``, ``fused_kernels.cu``
 and the headers they include)::
 
     mkdir -p OLD && for f in step_kernels.cu fused_kernels.cu \\
-        field_arith.cuh; do git show COMMIT:ecfft_tpu_torch/csrc/$f > OLD/$f; done
+        field_arith.cuh word_arith.cuh; do \\
+        git show COMMIT:ecfft_tpu_torch/csrc/$f > OLD/$f; done
     python3 tools/ab_step_kernels.py OLD [MORE_DIRS ...]
 
 Builds one library from each directory and one from the current sources
 (``ops/_build.py``'s ``KERNEL_SOURCES``), each with ``nvcc`` alone into
-``ecfft_tpu_torch/_build/ab``, all builds started together. The older
+``ecfft_tpu_torch/_build/ab``, all builds started together. A directory
+may hold a variant of one source only: the files it lacks are the current
+ones. Prints what ``-Xptxas -v`` says of each kernel of each build
+(registers, shared bytes, spills). The older
 libraries take the current ``Field`` struct: its fields only grew at the
 end, so a kernel that reads fewer of them reads the same bytes. Then, at
 the main path's shapes (state W 131200, L 16, B 256, window A 65536;
@@ -22,13 +26,14 @@ same in reverse: old, new, new, old for one directory) with CUDA events
 over 20 launches after 0.25 s of warm-up launches, and once more through
 the port's own wrapper (the library as ``ops/step.py`` loads it), with the
 SM clock and power draw read after each. The cascade runs 14 levels
-(halves 64 .. 1 twice, the eighth of kind 1), the pair levels half 128.
-Prints one line per kernel. Imports nothing of JAX. Needs one CUDA card
-and ``nvcc``.
+(halves 64 .. 1 twice, the eighth of kind 1), the pair levels half 128
+and then half 16384. Prints one line per kernel and shape. Imports
+nothing of JAX. Needs one CUDA card and ``nvcc``.
 """
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,12 +51,14 @@ L = SPEC.num_limbs
 W, A, B = 131200, 65536, 256
 START = W - A - 128  # the step kernels' window
 FSTART, HALF = A, 128  # the fused kernels' window and pair distance
+FAR_HALF = A // 4      # the pair levels' second distance
 HALVES = (64, 32, 16, 8, 4, 2, 1) * 2
 KINDS = (0,) * 7 + (1,) + (0,) * 6
 REPS, SETTLE_S = 20, 0.25
 
 
-def build(name: str, sources: list) -> str:
+def build(name: str, sources: list) -> tuple:
+    """(library, one line per kernel of what ``-Xptxas -v`` reports)."""
     from torch.utils import cpp_extension
 
     out_dir = os.path.join(_build.BUILD_DIR, "ab", name)
@@ -59,8 +66,44 @@ def build(name: str, sources: list) -> str:
     out = os.path.join(out_dir, f"lib{name}.so")
     nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin",
                         "nvcc")
-    subprocess.run([nvcc, _build.CUDA_ARCH, "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", out, *sources], check=True)
+    proc = subprocess.run(
+        [nvcc, _build.CUDA_ARCH, "-std=c++17", "-O3", "-shared", "-Xptxas",
+         "-v", "-Xcompiler", "-fPIC", "-I",
+         os.path.dirname(_build.KERNEL_SOURCES[0]), "-o", out, *sources],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"building {name} failed:\n{proc.stderr}")
+    return out, ptxas_lines(proc.stderr)
+
+
+def short_name(mangled: str) -> str:
+    """``pair_kernelILb0E`` from a mangled kernel name: the identifier
+    that ends in ``_kernel`` and stands behind its own length, with its
+    template argument."""
+    for m in re.finditer(r"_kernel(IL[bi]\dE)?E", mangled):
+        end = m.start() + len("_kernel")
+        for n in range(len("_kernel") + 1, 64):
+            name, size = mangled[end - n:end], str(n)
+            if (re.fullmatch(r"[a-z]\w*", name)
+                    and mangled[:end - n].endswith(size)):
+                return name + (m.group(1) or "")
+    return mangled
+
+
+def ptxas_lines(log: str) -> list:
+    """``ptxas -v``'s report, one line per kernel: registers, shared
+    bytes, stack and spills."""
+    out = []
+    for m in re.finditer(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\n"
+            r"ptxas info\s*: Used (\d+) registers(?:, used \d+ barriers)?"
+            r"(?:, \d+ bytes cumulative stack size)?(?:, (\d+) bytes smem)?",
+            log):
+        out.append(f"{short_name(m.group(1))}: "
+                   f"{m.group(5)} registers, {m.group(6) or 0} B shared, "
+                   f"stack {m.group(2)} B, spill stores {m.group(3)} B, "
+                   f"loads {m.group(4)} B")
     return out
 
 
@@ -90,7 +133,7 @@ def operands(dev):
             "aw": limbs(sum(KINDS), A)}
 
 
-def kernel_args(name: str, o: dict, lv) -> tuple:
+def kernel_args(name: str, o: dict, lv, half: int) -> tuple:
     """The C interface's arguments after the field, before the stream."""
     s, ca, cb, x1, x2 = o["state"], o["ca"], o["cb"], o["x1"], o["x2"]
     step_ints = (START, A, B)
@@ -100,14 +143,14 @@ def kernel_args(name: str, o: dict, lv) -> tuple:
         "ecfft_aff2g_ip": (ca, cb, x1, x2, s, *step_ints),
         "ecfft_muladd1": (cb, x1, x2, s, *step_ints),
         "ecfft_muladd2": (ca, cb, x1, x2, s, *step_ints),
-        "ecfft_fused_bf1": (cb, s, FSTART, HALF, A, B),
-        "ecfft_fused_bf2": (ca, cb, s, FSTART, HALF, A, B),
+        "ecfft_fused_bf1": (cb, s, FSTART, half, A, B),
+        "ecfft_fused_bf2": (ca, cb, s, FSTART, half, A, B),
         "ecfft_fused_cascade": (ctypes.byref(lv), o["cw"], o["aw"], s,
                                 FSTART, unrolled.TW, A, B),
     }[name]
 
 
-def wrapper_call(name: str, o: dict):
+def wrapper_call(name: str, o: dict, half: int):
     s, ca, cb, x1, x2 = o["state"], o["ca"], o["cb"], o["x1"], o["x2"]
     return {
         "ecfft_aff1s_ip": lambda: step.aff1s_ip(SPEC, cb, s, x2, START),
@@ -118,15 +161,15 @@ def wrapper_call(name: str, o: dict):
         "ecfft_muladd2": lambda: step.muladd2(SPEC, ca, cb, x1, x2, s,
                                               START),
         "ecfft_fused_bf1": lambda: unrolled.fused_bf1(SPEC, s, cb, FSTART,
-                                                      HALF),
+                                                      half),
         "ecfft_fused_bf2": lambda: unrolled.fused_bf2(SPEC, s, ca, cb,
-                                                      FSTART, HALF),
+                                                      FSTART, half),
         "ecfft_fused_cascade": lambda: unrolled.fused_cascade(
             SPEC, s, o["cw"], o["aw"], FSTART, HALVES, KINDS),
     }[name]
 
 
-def launcher(lib: str, name: str, o: dict, lv):
+def launcher(lib: str, name: str, o: dict, lv, half: int):
     """A function that launches kernel ``name`` of ``lib`` once."""
     fn = getattr(ctypes.CDLL(lib), name)
     n_ptrs, n_ints = step._SIGNATURES[name]
@@ -134,7 +177,7 @@ def launcher(lib: str, name: str, o: dict, lv):
     fn.restype = i32
     fn.argtypes = [ptr] * (1 + n_ptrs) + [i32] * n_ints + [ptr]
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in kernel_args(name, o, lv)]
+            for a in kernel_args(name, o, lv, half)]
     fld = step._field(SPEC)
 
     def run():
@@ -171,28 +214,36 @@ def main(argv) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    jobs = {os.path.basename(d.rstrip("/")): sorted(
-        os.path.join(d, f) for f in os.listdir(d) if f.endswith(".cu"))
-        for d in dirs}
+    jobs = {os.path.basename(d.rstrip("/")): [
+        os.path.join(d, os.path.basename(src))
+        if os.path.exists(os.path.join(d, os.path.basename(src))) else src
+        for src in _build.KERNEL_SOURCES] for d in dirs}
     jobs["current"] = _build.KERNEL_SOURCES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {k: pool.submit(build, f"ab_{i}", srcs)
                 for i, (k, srcs) in enumerate(jobs.items())}
-        libs = {k: f.result() for k, f in futs.items()}
+        built = {k: f.result() for k, f in futs.items()}
+    libs = {k: lib for k, (lib, _) in built.items()}
     step.load_kernels()
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s")
+    for k, (lib, lines) in built.items():
+        print(f"{k} ({lib}):\n  " + "\n  ".join(lines))
     o = operands(dev)
     lv = unrolled._Levels(len(HALVES),
                           (ctypes.c_int * unrolled.MAX_LEVELS)(*HALVES),
                           (ctypes.c_int * unrolled.MAX_LEVELS)(*KINDS))
     order = list(libs) + list(libs)[::-1]
-    for name in step._SIGNATURES:
-        runs = {k: launcher(lib, name, o, lv) for k, lib in libs.items()}
+    cases = [(name, HALF) for name in step._SIGNATURES] + [
+        (name, FAR_HALF) for name in ("ecfft_fused_bf1", "ecfft_fused_bf2")]
+    for name, half in cases:
+        runs = {k: launcher(lib, name, o, lv, half)
+                for k, lib in libs.items()}
         times = [(k, ms(runs[k]), smi()) for k in order]
         times.append(("current via the wrapper",
-                      ms(wrapper_call(name, o)), smi()))
-        print(f"{name}: " + "; ".join(
+                      ms(wrapper_call(name, o, half)), smi()))
+        what = f"{name} half {half}" if "_bf" in name else name
+        print(f"{what}: " + "; ".join(
             f"{k} {t:.4f} ms ({s})" for k, t, s in times), flush=True)
     return 0
 

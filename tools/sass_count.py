@@ -31,8 +31,11 @@ lower bound:
 - a loop with a barrier in it is a cascade's level loop: it runs once
   per entry of ``kinds``, with that entry as ``kind``;
 - any other loop runs once (the subtraction of p·2^j for a prime with
-  no slack), and any other branch-free block that a branch can skip
-  counts as skipped (a cascade's A rows for a next level of kind 1);
+  no slack); a branch-free block that a branch can skip runs if it
+  stores to shared or device memory (an element's own work behind the
+  guard of its ragged edge: a pair level's loads and shared stores),
+  and any other such block counts as skipped (a cascade's A rows for a
+  next level of kind 1);
 - a forward branch over code that holds branches (a guard around a loop
   or an element) falls through; an unconditional forward branch is
   followed; the walk ends at an unconditional ``EXIT`` or a backward
@@ -119,6 +122,11 @@ class _Walk:
         return bool(body) and not any(
             b.base in ("BRA", "EXIT", "CALL", "BAR") for b in body)
 
+    def stores(self, ins: Inst) -> bool:
+        """The block that the forward branch ``ins`` skips holds a store."""
+        return any(b.base in ("STS", "STG", "ST")
+                   for b in self.span(ins.addr + self.step, ins.target))
+
     def diamond(self, ins: Inst):
         """(side 1, side 2, join) of a two-way branch at ``ins``, or None."""
         if not (ins.base == "BRA" and ins.pred and ins.target is not None
@@ -161,7 +169,7 @@ class _Walk:
                     c += self.side(d, kind, kinds)
                     i = self.at.get(d[2])
                     continue
-                if self.skip_block(ins):
+                if self.skip_block(ins) and not self.stores(ins):
                     if fold_n:
                         body = self.count(ins.addr + self.step, ins.target,
                                           kind, kinds)
@@ -206,6 +214,17 @@ def thread_counts(insts: list[Inst], rounds: int, nz: int,
     w = _Walk(insts, rounds, nz)
     c = w.count(insts[0].addr, insts[-1].addr + w.step, None, list(kinds))
     return {k: float(c[k]) for k in ("fma", "alu", "all")}
+
+
+def loads_before_first_product(insts: list[Inst]) -> tuple[int, int]:
+    """(device loads listed ahead of the first 32x32->64-bit product, all
+    device loads): equal where a kernel issues every load before it starts
+    to multiply, as long as its address arithmetic needs no such product."""
+    ops = [ins.op for ins in insts]
+    first = next((k for k, op in enumerate(ops)
+                  if op.startswith("IMAD.WIDE.U32")), len(ops))
+    return (sum(op.startswith("LDG") for op in ops[:first]),
+            sum(op.startswith("LDG") for op in ops))
 
 
 def main(argv) -> int:
