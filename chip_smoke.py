@@ -13,15 +13,16 @@ stops the run with a non-zero exit:
    from its SASS (``tools/sass_count.py``; for the operation bounds);
 3. set-up: a native-built secp256k1 tree at n = 2^16, its pool, the
    ENTER/EXIT schedules and the unrolled executor's fusion analysis;
-4. each of the eight kernels against its plain PyTorch version on the
+4. each of the nine kernels against its plain PyTorch version on the
    card, bit for bit: edge values and seeded random values at B = 1 and
-   256 with rows outside the window untouched, then at the shapes the
-   main paths give it; the four on 32-bit words (aff1s, the pair levels,
-   the cascade) also on inputs that stress the word reduction, for
-   secp256k1 and for 2^255 − 19; then each timed at its main shape (CUDA
-   events, with the SM clock and power draw read just after) beside its
-   plain version, its bound (bytes or word products) and this design's
-   issue bound;
+   256 with rows outside the window untouched (the state×state product
+   also with one buffer as both factors), then at the shapes the main
+   paths give it; the five on 32-bit words (aff1s, mulss, the pair
+   levels, the cascade) also on inputs that stress the word reduction,
+   for secp256k1 and for 2^255 − 19; then each timed at its main shape
+   (CUDA events, with the SM clock and power draw read just after) beside
+   its plain version, its bound (bytes or word products) and this
+   design's issue bound;
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -30,11 +31,21 @@ stops the run with a non-zero exit:
 7. the same through the unrolled executor (``ECFFT_EXECUTOR=unrolled``),
    whose EXIT round trip runs the 2-mul generic kernel; its launch counts
    beside the counts its fusion analysis predicts;
-8. a JSON line of the kernels, the ``nvidia-smi`` line, and last the
+8. the six other algorithms at full width on the same tree, each on both
+   executors: EXTEND and MEXTEND (2^15 points, onto S0 and S1), DEGREE
+   (n = 2^16, lanes of different known degrees), REDC by Z0 and by Z1 and
+   MOD by the tree's own X^(n/2) (n = 2^16), VANISH (2^15 points), and
+   REDC and MOD by a modulus table given at run time (n = 2^16 too).
+   Each is gated bit for bit against the native engine on lanes 0 and
+   255, the two executors against each other on the whole batch, its
+   launch counts against the schedule's steps and the fusion analysis,
+   and timed warm (best of 2, fenced by ``torch.cuda.synchronize()``);
+9. a JSON line of the kernels, the ``nvidia-smi`` line, and last the
    result line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
+import ctypes
 import json
 import os
 import random
@@ -48,6 +59,7 @@ import torch
 from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FIELDS, spec_for_prime
+from ecfft_tpu_torch import native
 from ecfft_tpu_torch.native import NativeFFTree, native_library
 from ecfft_tpu_torch.ops import emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
@@ -88,6 +100,8 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "fused_cascade": (FUSED_SRC, "ecfft_tpu/ops/unrolled.py:200"),
     "fused_bf1": (FUSED_SRC, "ecfft_tpu/ops/unrolled.py:272"),
     "fused_bf2": (FUSED_SRC, "ecfft_tpu/ops/unrolled.py:345"),
+    # no TPU kernel: the JAX package leaves the state x state product to XLA
+    "mulss": (STEP_SRC, "ecfft_tpu/ops/schedule.py:1357"),
 }
 WRAPPERS = {w.__name__: w
             for w in (*step.STEP_WRAPPERS, *unrolled.FUSED_WRAPPERS)}
@@ -101,8 +115,9 @@ SASS_NAMES = {"aff1s_ip": "aff1s_kernel", "aff1g_ip": "step_kernelILi1E",
               "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
               "muladd2": "step_kernelILi2E", "fused_bf1": "pair_kernelILb0E",
               "fused_bf2": "pair_kernelILb1E",
-              "fused_cascade": "cascade_kernel"}
-WORD_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade")
+              "fused_cascade": "cascade_kernel", "mulss": "mulss_kernel"}
+WORD_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade",
+                "mulss")
 
 
 def log(*a):
@@ -192,6 +207,23 @@ def kernel_sass(lib: str) -> dict:
     return found
 
 
+def kernel_resources(lib: str) -> list:
+    """Registers, shared bytes and stack of each kernel, one line each, as
+    ``cuobjdump -res-usage`` prints them."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lines = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    out = []
+    for i, line in enumerate(lines[:-1]):
+        if line.strip().startswith("Function ") and "REG:" in lines[i + 1]:
+            name = line.strip()[len("Function "):].rstrip(":")
+            short = next((k for k in SASS_NAMES.values() if k in name), name)
+            out.append(f"{short}: {lines[i + 1].strip()}")
+    check(len(out) >= len(set(SASS_NAMES.values())),
+          f"cuobjdump -res-usage named {len(out)} kernels")
+    return out
+
+
 def fold_nonzero(kind, spec=SPEC) -> int:
     """Nonzero digits of F = 2^256 mod p as the kernel's fold reads them:
     32-bit words for the word kernels, 16-bit limbs for the others."""
@@ -248,6 +280,8 @@ def bound(kind, A, B, kinds=()):
         nbytes = 2 * E * el + (len(kinds) + sum(kinds)) * row
     elif kind in ("fused_bf1", "fused_bf2"):
         nbytes = 2 * E * el + (1 + two) * row
+    elif kind == "mulss":  # two factors in, the product out; no row
+        nbytes = 3 * E * el
     else:
         nbytes = 3 * E * el + (1 + two) * row
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -281,7 +315,7 @@ def step_args(kind, A, B, gen, edge, W, start):
     """Operands of a step kernel: coefficient rows, windows x1, x2 and a
     state of W rows with its window at ``start``. x1 is None where the step reads the state's own
     window, as the main paths' aff1s and muladd1 (OP_AFF1S) steps do."""
-    n_coef = 2 if kind in ("aff2g_ip", "muladd2") else 1
+    n_coef = {"aff2g_ip": 2, "muladd2": 2, "mulss": 0}.get(kind, 1)
     if edge:
         x1, c = edge_rows(A, B)
         x2, c2 = edge_rows(A, B, 3)
@@ -305,7 +339,9 @@ def run_step(kind, coeffs, state, x1, x2, start, plain):
     if x1 is None:
         x1 = state[start:start + A]
     if plain:
-        if len(coeffs) == 2:
+        if not coeffs:
+            new = step._mulss_cols(SPEC, x1, x2)
+        elif len(coeffs) == 2:
             new = step._muladd2_cols(SPEC, coeffs[0].unsqueeze(-1), x1,
                                      coeffs[1].unsqueeze(-1), x2)
         else:
@@ -313,7 +349,7 @@ def run_step(kind, coeffs, state, x1, x2, start, plain):
         state[start:start + A] = new
         return state
     w = WRAPPERS[kind]
-    if kind.startswith("muladd"):
+    if kind.startswith("mul"):  # muladd1, muladd2, mulss
         w(SPEC, *coeffs, x1, x2, state, start)
     elif kind == "aff1s_ip":
         w(SPEC, coeffs[0], state, x2, start)
@@ -407,6 +443,16 @@ def kernels_against_plain(gen, sched, cascade_run):
                 log(f"{kind} B={B} {'edge' if edge else 'random'}"
                     f"{'' if half is None else f' half={half}'}: "
                     f"max |kernel - plain| = {e}")
+        if kind == "mulss":  # one buffer as both factors: a square
+            for B, edge in ((1, True), (256, False)):
+                _, st, _, x2 = step_args(kind, 512, B, gen, edge, 1024, 384)
+                e = held_to_plain(
+                    lambda s: run_step(kind, [], s, x2, x2, 384, False),
+                    lambda s: run_step(kind, [], s, x2, x2, 384, True),
+                    st, 384, 512)
+                err = max(err, e)
+                log(f"{kind} B={B} {'edge' if edge else 'random'}, x1 is "
+                    f"x2: max |kernel - plain| = {e}")
         # the main paths' shapes
         if kind == "fused_cascade":
             start, halves, kinds = cascade_run
@@ -511,10 +557,10 @@ def int_limbs(values) -> torch.Tensor:
 
 
 def word_edges(kind, gen) -> int:
-    """The kernels on 32-bit words (aff1s, the pair levels, the cascade)
-    against their plain versions on :func:`word_edge_triples`, for
-    secp256k1 and 2^255 − 19, at B = 1 and 256; aff1s and bf1 also against
-    Python ints. Returns the largest |kernel − plain|."""
+    """The kernels on 32-bit words (aff1s, mulss, the pair levels, the
+    cascade) against their plain versions on :func:`word_edge_triples`,
+    for secp256k1 and 2^255 − 19, at B = 1 and 256; aff1s, mulss and bf1
+    also against Python ints. Returns the largest |kernel − plain|."""
     A, s0, W, err = 512, 384, 1152, 0
     for spec in (SPEC, ED):
         tri = word_edge_triples(spec, random.Random(spec.p % 997))
@@ -544,6 +590,27 @@ def word_edges(kind, gen) -> int:
             if kind in ("fused_bf1", "fused_bf2"):
                 err = max(err, pair_word_edges(kind, spec, tri, state, A, B,
                                                gen))
+                continue
+            if kind == "mulss":  # c·y of each triple, and y·y
+                rows = [tri[q % len(tri)] for q in range(A)]
+                cs, ys = (int_limbs([t[i] for t in rows])
+                          .unsqueeze(-1).expand(A, L, B).contiguous()
+                          for i in (1, 2))
+                for x1, what in ((cs, "x1·x2"), (ys, "x2·x2")):
+                    e = held_to_plain(
+                        lambda st: (step.mulss(spec, x1, ys, st, s0), st)[1],
+                        lambda st: (st[s0:s0 + A].copy_(step._mulss_cols(
+                            spec, x1, ys)), st)[1], state, s0, A)
+                    got = state.clone()
+                    step.mulss(spec, x1, ys, got, s0)
+                    dec = fd.decode(spec, got[s0:s0 + A, :, B - 1])
+                    check(all(int(dec[q]) == (y if x1 is ys else c) * y
+                              % spec.p for q, (_, c, y) in enumerate(rows)),
+                          f"mulss on the word edge values vs ints "
+                          f"({spec.name})")
+                    err = max(err, e)
+                    log(f"mulss word edges ({what}), {spec.name}, B={B}: "
+                        f"max |kernel - plain| = {e}")
                 continue
             for halves, kinds in (((64, 1, 64), (0, 0, 1)),
                                   ((32, 2, 16), (1, 0, 1))):
@@ -614,6 +681,11 @@ def plain_vs_ints(kind, coeffs, state, x1, x2, start):
     want = run_step(kind, coeffs, state.clone(), x1, x2, start, True)
     want = want[start:]
     dec = fd.decode(SPEC, want[:64, :, 0])
+    if not coeffs:  # the state x state product
+        v1, v2 = (fd.decode(SPEC, x[:64, :, 0]) for x in (x1, x2))
+        check(all(dec[q] == v1[q] * v2[q] % P for q in range(64)),
+              f"{kind} plain version vs ints")
+        return
     cb = fd.decode(SPEC, coeffs[-1][:64])
     ca = fd.decode(SPEC, coeffs[0][:64])
     xv = fd.decode(SPEC, x2[:64, :, 0])
@@ -630,14 +702,20 @@ def plain_vs_ints(kind, coeffs, state, x1, x2, start):
 
 def analysis_counts(sched, meta):
     """Per transform, the launches the fusion analysis predicts for each
-    unrolled kernel, and the runs of in-tile levels (start, halves,
-    kinds) as the executor flushes them before splitting."""
+    unrolled kernel (with the OP_MUL steps as mulss, and the OP_CMPSEL
+    steps, which launch no kernel of the port, as cmpsel), and the runs of
+    in-tile levels (start, halves, kinds) as the executor flushes them
+    before splitting."""
     ops = sched.xs[0]
     starts = sched.xs[1]
     tw = unrolled.TW
     c = collections.Counter()
     runs, cur = [], None
     for t, h in enumerate(meta.fusable):
+        if int(ops[t]) in (emit.OP_MUL, emit.OP_CMPSEL):
+            cur = None
+            c["mulss" if int(ops[t]) == emit.OP_MUL else "cmpsel"] += 1
+            continue
         two = int(ops[t]) in (emit.OP_AFFINE, emit.OP_AFFINE_C)
         if 0 < h < tw:
             if cur is not None and cur[0] == int(starts[t]):
@@ -721,6 +799,160 @@ def timed_reps(tree, gen, label):
     return BATCH / best, peak
 
 
+# ------------------------------------------------- the other algorithms
+
+
+def scan_counts(sched):
+    """The launches the schedule's opcodes ask of the scan executor: one
+    per step by its kind (aff1s also runs the D-engine's row products, so
+    its count is a floor)."""
+    ops = collections.Counter(int(op) for op in sched.xs[0])
+    return {"aff1g_ip": ops[emit.OP_AFF1] + ops[emit.OP_AFF1_C],
+            "aff2g_ip": ops[emit.OP_AFFINE] + ops[emit.OP_AFFINE_C],
+            "mulss": ops[emit.OP_MUL],
+            "aff1s_ip": ops[emit.OP_AFF1S] + ops[emit.OP_AFF1S_C]}
+
+
+def native_redc(nt, evals, a, moiety):
+    """The engine's REDC by Z0 (moiety 0) or Z1 (1) with modulus table a."""
+    out = ctypes.create_string_buffer(32 * len(evals))
+    native.lib().ecn_redc(nt._h, native._pack(evals), native._pack(a),
+                          len(evals), moiety, out)
+    return native._unpack(out.raw)
+
+
+def degree_batch(tree, gen, rng):
+    """Evaluations of BATCH polynomials of known, different degrees (the
+    edge degrees first, lane BATCH − 1 the largest), and the degrees."""
+    special = [0, 1, 2, 255, 256, N // 2 - 1, N // 2, N - 2]
+    degs = [special[b] if b < len(special) else rng.randrange(N)
+            for b in range(BATCH)]
+    degs[-1] = N - 1
+    d = torch.tensor(degs, device=DEV)
+    coeffs = rand_limbs((BATCH, N), gen)
+    idx = torch.arange(N, device=DEV)
+    coeffs *= (idx[None, :] <= d[:, None]).unsqueeze(-1)
+    coeffs[torch.arange(BATCH, device=DEV), d, 0] |= 1  # a leading term
+    return tree.enter(coeffs), degs
+
+
+def other_algorithms(tree, nt, gen):
+    """Phase 8. Returns (the mulss launches of all its gated calls, rows
+    for the log's table)."""
+    S0, S1 = emit.S0, emit.S1
+    rng = random.Random(8)
+    h = N // 2
+
+    def ints(t):
+        return [int(v) for v in fd.decode(SPEC, t)]
+
+    a_can, c_can = nt.table(N, "xnn_s"), nt.table(N, "z0z0_rem_xnn_s")
+    ga, gc = rand_limbs((N,), gen), rand_limbs((N,), gen)
+    ga[:, 0] |= 1  # no zero entry to invert
+    gai, gci = ints(ga), ints(gc)
+    ev, degs = degree_batch(tree, gen, rng)
+    # name, method, its arguments after the batch, the schedule's key, the
+    # batch (an int: a fresh random one of that many points), the engine
+    algs = [
+        ("EXTEND onto S0", "extend", (S0,), ("extend", h, S0), h,
+         lambda x: nt.extend(x, S0)),
+        ("EXTEND onto S1", "extend", (S1,), ("extend", h, S1), h,
+         lambda x: nt.extend(x, S1)),
+        ("MEXTEND onto S0", "mextend", (S0,), ("mextend", h, S0), h,
+         lambda x: nt.mextend(x, S0)),
+        ("MEXTEND onto S1", "mextend", (S1,), ("mextend", h, S1), h,
+         lambda x: nt.mextend(x, S1)),
+        ("DEGREE", "degree", (), ("degree", N), ev, nt.degree),
+        ("REDC by Z0, a = X^(n/2)", "redc_z0", (), ("redc", N), N,
+         lambda x: nt.redc_z0(x, a_can)),
+        ("REDC by Z1, a = X^(n/2)", "redc_z1", (), ("redc1", N), N,
+         lambda x: native_redc(nt, x, a_can, 1)),
+        ("MOD, a = X^(n/2)", "modular_reduce", (), ("mod", N), N,
+         lambda x: nt.modular_reduce(x, a_can, c_can)),
+        ("VANISH", "vanish", (), ("vanish", h), h, nt.vanish),
+        ("REDC by Z0, general modulus", "redc_z0", (ga,),
+         ("gredc", N, S0), N, lambda x: nt.redc_z0(x, gai)),
+        ("MOD, general modulus", "modular_reduce", (ga, gc), ("gmod", N),
+         N, lambda x: nt.modular_reduce(x, gai, gci)),
+    ]
+    mulss_launches, rows = 0, []
+    for name, method, args, key, batch, engine in algs:
+        x = rand_limbs((BATCH, batch), gen) if isinstance(batch, int) \
+            else batch
+        m = x.shape[1]
+        want = {b: engine(ints(x[b])) for b in (0, BATCH - 1)}
+        outs = {}
+        for ex in ("scan", "unrolled"):
+            os.environ.pop("ECFFT_EXECUTOR", None)
+            if ex == "unrolled":
+                os.environ["ECFFT_EXECUTOR"] = "unrolled"
+            t0 = time.perf_counter()
+            sched, _, meta = tree._schedule(*key)
+            setup_s = time.perf_counter() - t0
+
+            def run():
+                return getattr(tree, method)(x, *args)
+            torch.cuda.synchronize()
+            reset_counts()
+            out = run()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            for b, w in want.items():
+                got = int(out[b]) if method == "degree" else ints(out[b])
+                check(got == w, f"{name} ({ex}) does not match the native "
+                                f"engine on lane {b}")
+            if method == "degree":
+                check(out.tolist() == degs, f"{name} ({ex}): the degrees")
+            else:
+                check(bool(((out >= 0) & (out < 1 << 16)).all()),
+                      f"{name} ({ex}) output limbs out of range")
+            if ex == "scan":
+                pred = scan_counts(sched)
+                check(all(counts[k] == v for k, v in pred.items()
+                          if k != "aff1s_ip")
+                      and counts["aff1s_ip"] >= pred["aff1s_ip"],
+                      f"{name} (scan) launches {counts} against the "
+                      f"schedule's steps {pred}")
+            else:
+                pred, _ = analysis_counts(sched, meta)
+                check(all(counts[k] == pred[k] for k in (
+                    "muladd1", "muladd2", "fused_bf1", "fused_bf2",
+                    "fused_cascade", "mulss")),
+                      f"{name} (unrolled) launches {counts} against the "
+                      f"analysis {dict(pred)}")
+            mulss_launches += counts["mulss"]
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            best = min(times)
+            launched = {k: v for k, v in counts.items() if v}
+            n_cmp = int((sched.xs[0] == emit.OP_CMPSEL).sum())
+            cmpsel = f", {n_cmp} cmpsel steps in plain PyTorch" * bool(n_cmp)
+            log(f"{name} ({ex}), {m} points, B={BATCH}: W={sched.W} "
+                f"A={sched.A} steps={len(sched.xs[0])}; schedule"
+                f"{' and analysis' if ex == 'unrolled' else ''} "
+                f"{setup_s:.3f} s; gate passed (== native on lanes 0, "
+                f"{BATCH - 1}); launches {launched} = {sum(counts.values())}"
+                f"{cmpsel}"
+                f"; warm reps (s) {[round(t, 4) for t in times]}: "
+                f"{BATCH / best:.3f} polys/s")
+            rows.append((name, ex, m, len(sched.xs[0]),
+                         sum(counts.values()), counts["mulss"],
+                         BATCH / best))
+            outs[ex] = out
+            del out
+        check(torch.equal(outs["scan"], outs["unrolled"]),
+              f"{name}: the unrolled executor differs from the scan one")
+        del outs, x
+        torch.cuda.empty_cache()
+    os.environ.pop("ECFFT_EXECUTOR", None)
+    return mulss_launches, rows
+
+
 def main() -> int:
     global SASS, SM_CLOCKS
     if not torch.cuda.is_available():
@@ -771,6 +1003,8 @@ def main() -> int:
                 per = sass_count.thread_counts(SASS[k], FOLD_ROUNDS,
                                                fold_nonzero(k))
                 log(f"{k}: one thread issues {per}")
+        for line in kernel_resources(lib._name):
+            log(line)
         for k in ("fused_bf1", "fused_bf2"):
             ahead, loads = sass_count.loads_before_first_product(SASS[k])
             log(f"{k}: {ahead} of its {loads} device loads stand ahead of "
@@ -873,6 +1107,16 @@ def main() -> int:
             f"polys/s (peak {un_peak / 1e9:.3f} GB); unrolled / scan "
             f"{un_tput / scan_tput:.3f}")
     os.environ.pop("ECFFT_EXECUTOR")
+
+    with Phase("8 the six other algorithms, each on both executors"):
+        mulss_launches, rows = other_algorithms(tree, nt, gen)
+        check(mulss_launches > 0, "mulss was not launched")
+        log("algorithm | executor | points | steps | launches (mulss) | "
+            f"polys/s at B={BATCH}")
+        for alg, ex, m, steps, launches, mul, tput in rows:
+            log(f"{alg} | {ex} | {m} | {steps} | {launches} ({mul}) | "
+                f"{tput:.3f}")
+    scan_launches["mulss"] = un_launches["mulss"] = mulss_launches
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():

@@ -1,6 +1,6 @@
 // The schedule machine's affine steps, for Hopper (sm_90a).
 //
-// Five kernels write the window [start, start + A) of a (W, L, B) int32
+// Six kernels write the window [start, start + A) of a (W, L, B) int32
 // state of 16-bit limbs, for a fold-friendly prime with L = 16:
 //
 //   ecfft_aff1s_ip  state[s+q] <- state[s+q] + C[q]*x2[q]   replaces
@@ -13,6 +13,9 @@
 //                   pallas_muladd1 (pallas_step.py:338)
 //   ecfft_muladd2   out[s+q] <- A[q]*x1[q] + B[q]*x2[q]      replaces
 //                   pallas_muladd2 (pallas_step.py:364)
+//   ecfft_mulss     out[s+q] <- x1[q]*x2[q]                  replaces
+//                   _mulss (ecfft_tpu/ops/schedule.py:1357), the OP_MUL
+//                   step, which the TPU leaves to XLA (no Pallas kernel)
 //
 // with C/A/B (A, L) coefficient rows and x1, x2 (A, L, B) windows. The
 // in-place kernels take gathered windows in buffers of their own. The
@@ -46,6 +49,15 @@
 //
 // The muladd pair is aff1g's and aff2g's kernel with an output of the
 // caller's choosing as its "state": the same bytes, the same design.
+//
+// mulss_kernel (the state x state product, on 32-bit words) has the shape
+// of aff1s_kernel's thread: one thread per element, its 32 loads (16 limbs
+// of each factor) ahead of the first multiply, one 8x8-word product with a
+// zero addend, the word fold, 16 stores. It moves the same 192 bytes per
+// element (two factors in, the product out; no coefficient row) and does
+// the same word products, so it too is bound by its bytes. Both factors
+// are per element, and they may be one buffer (a square): they are only
+// read. Neither may overlap the rows that are written.
 //
 // The kernels allocate nothing and launch on the caller's stream; each
 // launcher returns cudaGetLastError() so a refused launch is reported.
@@ -93,6 +105,32 @@ aff1s_kernel(Field fd, const int32_t* __restrict__ c,
   wa::mul_add(wc, wx, ws, v);
   wa::reduce(fd, v, ws);
   wa::store_words(st, B, ws);
+}
+
+// out[s+q] <- x1[q]*x2[q] on 32-bit words; x1 and x2 may be one buffer.
+__global__ void __launch_bounds__(THREADS, 4)
+mulss_kernel(Field fd, const int32_t* x1, const int32_t* x2, int32_t* out,
+             int start, int A, int B) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+  if (e >= static_cast<int64_t>(A) * B) return;  // the ragged edge
+  const int64_t q = e / B;
+  const int64_t b = e - q * B;
+  const int64_t LB = static_cast<int64_t>(NL) * B;
+  const int32_t* p1 = x1 + q * LB + b;
+  const int32_t* p2 = x2 + q * LB + b;
+  uint32_t l1[NL], l2[NL];
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    l1[j] = static_cast<uint32_t>(__ldg(p1 + j * B));
+    l2[j] = static_cast<uint32_t>(__ldg(p2 + j * B));
+  }
+  uint32_t w1[NW], w2[NW], v[NV];
+  const uint32_t zero[NW] = {0, 0, 0, 0, 0, 0, 0, 0};
+  wa::pack(l1, w1);
+  wa::pack(l2, w2);
+  wa::mul_add(w1, w2, zero, v);
+  wa::reduce(fd, v, w1);
+  wa::store_words(out + (start + q) * LB + b, B, w1);
 }
 
 // KIND 1: x1 + C*x2 (aff1g, muladd1); 2: A*x1 + B*x2 (aff2g, muladd2).
@@ -171,6 +209,14 @@ int ecfft_muladd2(const Field* fd, const int32_t* a, const int32_t* b,
                   const int32_t* x1, const int32_t* x2, int32_t* out,
                   int start, int A, int B, void* stream) {
   return launch<2>(fd, a, b, out, x1, x2, start, A, B, stream);
+}
+
+int ecfft_mulss(const Field* fd, const int32_t* x1, const int32_t* x2,
+                int32_t* out, int start, int A, int B, void* stream) {
+  mulss_kernel<<<blocks_for(A, B), THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(*fd, x1, x2, out, start,
+                                                      A, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* ecfft_error_string(int err) {

@@ -32,11 +32,27 @@ def lib() -> ctypes.CDLL:
                                     ctypes.c_uint64]
         so.ecn_tree_free.restype = None
         so.ecn_tree_free.argtypes = [ctypes.c_void_p]
-        for name in ("ecn_enter", "ecn_exit"):
+        for name in ("ecn_enter", "ecn_exit", "ecn_vanish"):
             fn = getattr(so, name)
             fn.restype = None
             fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64,
                            ctypes.c_char_p]
+        for name in ("ecn_extend", "ecn_mextend"):
+            fn = getattr(so, name)
+            fn.restype = None
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64,
+                           ctypes.c_int, ctypes.c_char_p]
+        so.ecn_degree.restype = ctypes.c_uint64
+        so.ecn_degree.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                  ctypes.c_uint64]
+        so.ecn_redc.restype = None
+        so.ecn_redc.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_char_p, ctypes.c_uint64,
+                                ctypes.c_int, ctypes.c_char_p]
+        so.ecn_mod.restype = None
+        so.ecn_mod.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                               ctypes.c_char_p, ctypes.c_char_p,
+                               ctypes.c_uint64, ctypes.c_char_p]
         so.ecn_table.restype = ctypes.c_uint64
         so.ecn_table.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
                                  ctypes.c_int, ctypes.c_char_p]
@@ -68,8 +84,9 @@ TABLE_IDS = {
 
 
 class NativeFFTree:
-    """Single-core native FFTree: ENTER/EXIT on python ints, and the
-    tables the port's FFTree is built from."""
+    """Single-core native FFTree: the eight algorithms on python ints
+    (REDC by Z0 only, with an explicit modulus table), and the tables the
+    port's FFTree is built from."""
 
     def __init__(self, field: str | FieldSpec, n: int,
                  leaves: list[int] | None = None, maps=None):
@@ -99,27 +116,52 @@ class NativeFFTree:
             so.ecn_tree_free(h)
             self._h = None
 
-    def _io(self, fname, vals):
-        out = ctypes.create_string_buffer(32 * len(vals))
-        getattr(self._lib, fname)(self._h, _pack(vals), len(vals), out)
+    def _io(self, fname, vals, out_count, *extra):
+        out = ctypes.create_string_buffer(32 * out_count)
+        getattr(lib(), fname)(self._h, _pack(vals), len(vals), *extra, out)
         return _unpack(out.raw)
 
     def enter(self, coeffs: list[int]) -> list[int]:
-        return self._io("ecn_enter", coeffs)
+        return self._io("ecn_enter", coeffs, len(coeffs))
 
     def exit(self, evals: list[int]) -> list[int]:
-        return self._io("ecn_exit", evals)
+        return self._io("ecn_exit", evals, len(evals))
+
+    def extend(self, evals: list[int], moiety: int) -> list[int]:
+        return self._io("ecn_extend", evals, len(evals), moiety)
+
+    def mextend(self, evals: list[int], moiety: int) -> list[int]:
+        return self._io("ecn_mextend", evals, len(evals), moiety)
+
+    def degree(self, evals: list[int]) -> int:
+        return int(lib().ecn_degree(self._h, _pack(evals), len(evals)))
+
+    def redc_z0(self, evals: list[int], a: list[int]) -> list[int]:
+        out = ctypes.create_string_buffer(32 * len(evals))
+        lib().ecn_redc(self._h, _pack(evals), _pack(a), len(evals), 0, out)
+        return _unpack(out.raw)
+
+    def modular_reduce(self, evals, a, c) -> list[int]:
+        out = ctypes.create_string_buffer(32 * len(evals))
+        lib().ecn_mod(self._h, _pack(evals), _pack(a), _pack(c), len(evals),
+                      out)
+        return _unpack(out.raw)
+
+    def vanish(self, points: list[int]) -> list[int]:
+        out = ctypes.create_string_buffer(32 * 2 * len(points))
+        lib().ecn_vanish(self._h, _pack(points), len(points), out)
+        return _unpack(out.raw)
 
     def table(self, size: int, name: str) -> list[int]:
-        cnt = self._lib.ecn_table(self._h, size, TABLE_IDS[name], None)
+        cnt = lib().ecn_table(self._h, size, TABLE_IDS[name], None)
         out = ctypes.create_string_buffer(32 * cnt)
-        self._lib.ecn_table(self._h, size, TABLE_IDS[name], out)
+        lib().ecn_table(self._h, size, TABLE_IDS[name], out)
         return _unpack(out.raw)
 
     def mats(self, size: int, depth: int, which: int) -> list[int]:
-        cnt = self._lib.ecn_mats(self._h, size, depth, which, None)
+        cnt = lib().ecn_mats(self._h, size, depth, which, None)
         out = ctypes.create_string_buffer(32 * 4 * cnt)
-        self._lib.ecn_mats(self._h, size, depth, which, out)
+        lib().ecn_mats(self._h, size, depth, which, out)
         return _unpack(out.raw)
 
 

@@ -1,11 +1,14 @@
-"""The schedule builder: ENTER and EXIT as data, in numpy.
+"""The schedules of the eight FFTree algorithms as data, in numpy.
 
 A jax-free copy of the numpy half of ``ecfft_tpu/ops/schedule.py``: the
 opcode and formula-slot constants, :class:`Schedule`, the builder that
 verifies each step's closed-form index formula against the emitted row,
-the EXTEND butterfly emitter and the ENTER/EXIT emitters. The emitters
-take the pool offsets dict (``ops.schedule.build_pool``) where the
-original takes a tree; their arrays equal the original's (tested).
+the EXTEND butterfly emitter and the emitters of ENTER, EXIT, EXTEND and
+MEXTEND, REDC and MOD (by the tree's own X^(k/2) and by a modulus given
+at run time), DEGREE and VANISH. The emitters take the pool offsets dict
+(``ops.schedule.build_pool``) where the original takes a tree, and the
+general-modulus one the field's prime beside it; their arrays equal the
+original's (tested).
 
 Each step of a schedule computes, on a window [start, start + A) of the
 (W, L, B) state,
@@ -15,7 +18,10 @@ Each step of a schedule computes, on a window [start, start + A) of the
 (or its 1-mul forms), with the four index rows a, g1, b, g2 synthesised
 at run time from 16 scalars per column (see ``_synth_np``) and the
 butterfly coefficients computed by the running-diagonal engine from the
-DP_* micro-op parameters. The executor is ``ops.schedule.run_schedule``.
+DP_* micro-op parameters. Two more step kinds read no coefficient:
+OP_MUL, out[p] = x[g1[p]] · x[g2[p]], and OP_CMPSEL, which selects
+x[g1[p]] or x[g2[p]] per batch lane by whether x[a[p]] = x[b[p]] on every
+row of the window. The executor is ``ops.schedule.run_schedule``.
 """
 
 from __future__ import annotations
@@ -134,14 +140,18 @@ class _Builder:
     Width is rounded up to a multiple of 128 (the reference layout the
     schedules are held equal to); the pad rows stay passthrough forever.
 
+    ``one_pos`` (required for OP_MUL steps) is the state position holding
+    the constant 1: a mul step's passthrough form is x[p]·x[one_pos].
+
     Each ``new_*_step`` call finalizes the previous step: hinted columns
     are verified against their emitted rows and compressed to 16 scalars;
     unhinted non-default columns go to the residual row bank. Memory
     during build is O(W) regardless of step count."""
 
-    def __init__(self, W: int):
+    def __init__(self, W: int, one_pos: int | None = None):
         self._orig_w = W
         self.W = (W + 127) & ~127
+        self.one_pos = one_pos
         self.bs_max = 0
         self._cur: _StepRef | None = None
         self._fin: list = []       # (op, lo, hi, colinfo[4], dp)
@@ -168,6 +178,12 @@ class _Builder:
                                ((1, 0), (0, 0), (1, 0), (0, 0)))
         return self._begin(OP_AFFINE, ((1, ONE), (0, 0), (1, ZERO), (0, 0)))
 
+    def new_mul_step(self):
+        """out[p] = x[g1[p]]·x[g2[p]]; defaults to x[p]·1."""
+        assert self.one_pos is not None, "mul steps need one_pos"
+        return self._begin(OP_MUL,
+                           ((1, 0), (0, 0), (1, 0), (1, self.one_pos)))
+
     def new_aff1_step(self, self_read: bool = False, csrc: bool = False):
         """out[p] = x[g1[p]] + C·x[g2[p]] — the 1-mul step. With
         ``self_read`` the runtime reads x1 as the window slice itself
@@ -178,6 +194,11 @@ class _Builder:
             return self._begin(op, ((1, 0), (0, 0), (1, 0), (0, 0)))
         op = OP_AFF1S if self_read else OP_AFF1
         return self._begin(op, ((1, 0), (0, 0), (1, ZERO), (0, 0)))
+
+    def new_cmpsel_step(self):
+        """comp = ∀p x[a[p]] == x[b[p]] (per batch lane);
+        out[p] = comp ? x[g1[p]] : x[g2[p]]."""
+        return self._begin(OP_CMPSEL, ((0, 0), (0, 0), (0, 0), (0, 0)))
 
     @property
     def zero_pos(self) -> int:
@@ -406,6 +427,26 @@ def _emit_extend(bld, off, k: int, moiety: int, dst, nblocks: int,
                 msi0=bm + 4 * hw, msi1=bm + 5 * hw)
 
 
+def extend_schedule(off: dict, m: int, moiety: int, mextend: bool = False):
+    """Standalone EXTEND/MEXTEND of an m-point input (tree size 2m).
+
+    State width m+1 (const-one slot feeds MEXTEND's +Z table term,
+    fftree.rs:128-135). ``off``: the pool offsets."""
+    W = m + 1
+    bld = _Builder(W)
+    _emit_extend(bld, off, 2 * m, moiety, (0, m), 1)
+    if mextend:
+        zkey = "z0_s1" if moiety == S1 else "z1_s0"
+        zoff = off[f"{zkey}_{2 * m}"]
+        ar, g1, br, g2 = bld.new_aff1_step(self_read=True)
+        idx = np.arange(m)
+        br[idx] = zoff + idx
+        g2[idx] = m  # const-one slot
+        bld.hint("b", off=0, span=m, c0=zoff, m1=-1)
+        bld.hint("g2", off=0, span=m, c0=m)
+    return bld.arrays()
+
+
 def enter_schedule(off: dict, n: int):
     """ENTER as a schedule (fftree.rs:143-167): per block size k, fold the
     lane copy into depth-0 butterflies on the scratch lane, then one
@@ -536,4 +577,343 @@ def exit_schedule(off: dict, n: int):
         bld.hint("g1", off=0, span=(nb - 1) * k + bs, km=k - 1, alo=0,
                  ahi=bs, c0=U0b, m1=-1)
         k //= 2
+    return bld.arrays()
+
+
+def mod_schedule(off: dict, k: int, redc_only: bool = False, moiety: int = S0):
+    """Standalone MOD (or single REDC) by a = X^(k/2) with the canonical
+    c table (the fftree.rs:286-289 public entry specialized to the
+    precomputed-modulus case). Output replaces the value lane with the
+    interleaved (h0', h1') table. ``moiety=S1`` gives canonical REDC by
+    Z₁ (fftree.rs:272-275); full MOD is S0-only (fftree.rs:278-280).
+    ``off``: the pool offsets.
+    """
+    assert moiety == S0 or redc_only, "full MOD is S0-only"
+    n = k
+    W = 2 * n + 1
+    bld = _Builder(W)
+    bs = k // 2
+    SA0, SB0 = n, n + bs
+    a0inv = off[f"xnn_s_inv_{k}"]
+    z0inv = (off[f"z0_inv_s1_{k}"] if moiety == S0
+             else off[f"z1_inv_s0_{k}"])
+    negaz = (off[f"neg_a1_z0inv_{k}"] if moiety == S0
+             else off[f"neg_a1_z1inv_{k}"])
+    c0a0 = off[f"c0_a0inv_{k}"]
+    zc1 = off[f"zc1_{k}"]
+    other = S1 if moiety == S0 else S0
+
+    I = np.arange(bs)
+    SA, SB = SA0 + I, SB0 + I
+    actA = dict(off=SA0, span=bs)
+    actB = dict(off=SB0, span=bs)
+    ar, g1, br, g2 = bld.new_aff1_step()
+    g1[SA] = bld.zero_pos
+    br[SA] = a0inv + 2 * I
+    g2[SA] = 2 * I
+    bld.hint("g1", **actA, c0=bld.zero_pos, dk=0)
+    bld.hint("b", **actA, c0=a0inv, s2=-1, m2=-1)
+    bld.hint("g2", **actA, s2=-1, m2=-1)
+    _emit_extend(bld, off, k, other, (SA0, k), 1)
+    ar, g1, br, g2 = bld.new_step()
+    ar[SB] = z0inv + I
+    g1[SB] = 2 * I + 1
+    br[SB] = negaz + I
+    g2[SB] = SA
+    bld.hint("a", **actB, c0=z0inv, m1=-1)
+    bld.hint("g1", **actB, c0=1, s2=-1, m2=-1)
+    bld.hint("b", **actB, c0=negaz, m1=-1)
+    bld.hint("g2", **actB, c0=SA0, m1=-1)
+    _emit_extend(bld, off, k, moiety, (SA0, k), 1, src=(SB0, k, 0))
+    h0b, h1b = (SA0, SB0) if bs > 1 else (SB0, SB0)
+    if not redc_only:
+        ar, g1, br, g2 = bld.new_aff1_step()
+        g1[SA] = bld.zero_pos
+        br[SA] = c0a0 + I
+        g2[SA] = h0b + I
+        bld.hint("g1", **actA, c0=bld.zero_pos, dk=0)
+        bld.hint("b", **actA, c0=c0a0, m1=-1)
+        bld.hint("g2", **actA, c0=h0b, m1=-1)
+        _emit_extend(bld, off, k, S1, (SA0, k), 1)
+        ar, g1, br, g2 = bld.new_step()
+        ar[SB] = zc1 + I
+        g1[SB] = h1b + I
+        br[SB] = negaz + I
+        g2[SB] = SA
+        bld.hint("a", **actB, c0=zc1, m1=-1)
+        bld.hint("g1", **actB, c0=h1b, m1=-1)
+        bld.hint("b", **actB, c0=negaz, m1=-1)
+        bld.hint("g2", **actB, c0=SA0, m1=-1)
+        _emit_extend(bld, off, k, S0, (SA0, k), 1, src=(SB0, k, 0))
+        h0b = SA0 if bs > 1 else SB0
+        h1b = SB0
+    # interleave result back onto the value lane (mul-free copy step)
+    ar, g1, br, g2 = bld.new_aff1_step()
+    g1[2 * I] = h0b + I
+    g1[2 * I + 1] = h1b + I
+    bld.hint("g1", off=0, span=k, sb=0, c0=h0b, c1=h1b, s2=1, m2=-1)
+    return bld.arrays()
+
+
+def degree_schedule(off: dict, n: int):
+    """DEGREE as a schedule (fftree.rs:169-198).
+
+    Per level k: extend the even evals onto S₁, compare against the odd
+    evals (one OP_CMPSEL bool per batch lane), and select either the
+    low path (keep e₀) or the high path t₀ = extend((e₁−g₁)·z₀⁻¹, S₀),
+    accumulating k/2 on the high path. The accumulator rides the state
+    as a field element; ``FFTree.degree`` decodes it to int32. ``off``:
+    the pool offsets.
+
+    State: V [0,n) evals · acc at n · acc+k/2 at n+1 · one at n+2 ·
+    SA [n+3, n+3+n/2) extend scratch · SB t₁/t₀ scratch. Every step is
+    laid out to keep its active span ≤ n/2+1: the accumulator update is
+    its own one-row step; the branch select is TWO cmpsel steps (V rows,
+    then acc) whose compare indices live on rows just below acc — so the
+    whole schedule windows to ~n/2 instead of ~2n.
+    """
+    acc, acc_s = n, n + 1
+    one_pos = n + 2
+    sa = n + 3
+    sb = sa + n // 2
+    bld = _Builder(sb + n // 2, one_pos=one_pos)
+    k = n
+    while k >= 2:
+        bs = k // 2
+        I = np.arange(bs)
+        SA, SB = sa + I, sb + I
+        # acc_s = acc + k/2 (one-row 1-mul step)
+        ar, g1, br, g2 = bld.new_aff1_step()
+        g1[acc_s] = acc
+        br[acc_s] = off[f"half_const_{k}"]
+        g2[acc_s] = one_pos
+        bld.hint("g1", off=acc_s, span=1, c0=acc, dk=0)
+        bld.hint("b", off=acc_s, span=1, c0=off[f"half_const_{k}"])
+        bld.hint("g2", off=acc_s, span=1, c0=one_pos, dk=0)
+        if bs == 1:
+            ar, g1, br, g2 = bld.new_aff1_step()  # identity extend = copy
+            g1[SA] = 2 * I
+            bld.hint("g1", off=sa, span=1, c0=0)
+        else:
+            _emit_extend(bld, off, k, S1, (sa, bs), 1, src=(0, 1, 1))
+        # t1 = z0inv·e1 − z0inv·g1 → SB
+        ar, g1, br, g2 = bld.new_step()
+        ar[SB] = off[f"z0_inv_s1_{k}"] + I
+        g1[SB] = 2 * I + 1
+        br[SB] = off[f"neg_z0_inv_s1_{k}"] + I
+        g2[SB] = SA
+        bld.hint("a", off=sb, span=bs, c0=off[f"z0_inv_s1_{k}"], m1=-1)
+        bld.hint("g1", off=sb, span=bs, c0=1, s2=-1, m2=-1)
+        bld.hint("b", off=sb, span=bs, c0=off[f"neg_z0_inv_s1_{k}"],
+                 m1=-1)
+        bld.hint("g2", off=sb, span=bs, c0=sa, m1=-1)
+        if bs > 1:
+            _emit_extend(bld, off, k, S0, (sb, bs), 1, src=(sb, bs, 0))
+        # low path iff extend(e₀) == e₁. cmpsel 1: acc row FIRST (the
+        # V-select below overwrites the odd evals the compare reads) —
+        # the compare pairs sit on rows just below acc
+        ar, g1, br, g2 = bld.new_cmpsel_step()
+        rows = acc - bs + I
+        ar[rows] = SA
+        br[rows] = 2 * I + 1
+        g1[acc] = acc
+        g2[acc] = acc_s
+        bld.hint("a", off=acc - bs, span=bs, c0=sa, m1=-1)
+        bld.hint("b", off=acc - bs, span=bs, c0=1, s2=-1, m2=-1)
+        bld.hint("g1", off=acc, span=1, c0=acc, dk=0)
+        bld.hint("g2", off=acc, span=1, c0=acc_s, dk=0)
+        # cmpsel 2: V rows — compare pairs sit on the SAME rows being
+        # written (a/b are compare indices, g1/g2 the select)
+        ar, g1, br, g2 = bld.new_cmpsel_step()
+        ar[I] = SA
+        br[I] = 2 * I + 1
+        g1[I] = 2 * I
+        g2[I] = SB
+        bld.hint("a", off=0, span=bs, c0=sa, m1=-1)
+        bld.hint("b", off=0, span=bs, c0=1, s2=-1, m2=-1)
+        bld.hint("g1", off=0, span=bs, s2=-1, m2=-1)
+        bld.hint("g2", off=0, span=bs, c0=sb, m1=-1)
+        k //= 2
+    # expose acc at row 0 for from_state (mul-free copy step)
+    ar, g1, br, g2 = bld.new_aff1_step()
+    g1[0] = acc
+    bld.hint("g1", off=0, span=1, c0=acc)
+    return bld.arrays()
+
+
+def vanish_schedule(off: dict, v: int):
+    """VANISH of v arbitrary points over the size-2v (sub)tree as a
+    schedule (fftree.rs:291-316): base values [α−l₀, α−l₁] via the
+    negated 2-leaf domain, then per level one OP_MUL pairwise merge and
+    a batched MEXTEND.
+
+    Values live MOIETY-PLANAR: two v-row planes (S0 values, S1 values)
+    that ping-pong with the two v-row scratch planes each level — a
+    merged group's S0 plane IS the product plane and its S1 plane IS
+    the mextend output, so there are no interleave steps and every
+    step's active span is exactly v. The final domain-ordered interleave
+    is a post-scan output permutation (run_schedule's out_perm).
+
+    Returns the schedule with out_perm set. ``off``: the pool offsets.
+    """
+    one_pos = 4 * v
+    bld = _Builder(4 * v + 1, one_pos=one_pos)
+    I = np.arange(v)
+    # base planes (input points arrive at rows [0, v)): S1 plane first —
+    # the S0 plane overwrites the inputs in place
+    ar, g1, br, g2 = bld.new_aff1_step()
+    g1[v + I] = I
+    br[v + I] = off["neg_leaf2"] + 1
+    g2[v + I] = one_pos
+    bld.hint("g1", off=v, span=v, m1=-1)
+    bld.hint("b", off=v, span=v, c0=off["neg_leaf2"] + 1)
+    bld.hint("g2", off=v, span=v, c0=one_pos)
+    ar, g1, br, g2 = bld.new_aff1_step(self_read=True)
+    br[I] = off["neg_leaf2"] + 0
+    g2[I] = one_pos
+    bld.hint("b", off=0, span=v, c0=off["neg_leaf2"])
+    bld.hint("g2", off=0, span=v, c0=one_pos)
+    base = 0  # current planes at [base, base+2v); scratch at the other
+    cur = 2
+    while cur < 2 * v:
+        ng = 2 * v // cur // 2  # merged groups this level
+        scratch = 2 * v - base
+        mc = cur // 2  # per-moiety size of a child group
+        J, T = _mesh(ng, cur)
+        SA = scratch + J * cur + T
+        SB = scratch + v + J * cur + T
+        # child value at domain position t: even → S0 plane, odd → S1;
+        # q_s0[g, t] = left(t) · right(t) (state×state)
+        ar, g1, br, g2 = bld.new_mul_step()
+        g1[SA] = base + np.where(T % 2 == 0, 0, v) + 2 * J * mc + T // 2
+        g2[SA] = (base + np.where(T % 2 == 0, 0, v) + (2 * J + 1) * mc
+                  + T // 2)
+        bld.hint("g1", off=scratch, span=ng * cur, sb=0, c0=base,
+                 c1=base + v, m1=~(cur - 1), s2=1, m2=mc - 1)
+        bld.hint("g2", off=scratch, span=ng * cur, sb=0, c0=base + mc,
+                 c1=base + v + mc, m1=~(cur - 1), s2=1, m2=mc - 1)
+        # mextend q onto S1 of the size-2·cur tree → the new S1 plane
+        _emit_extend(bld, off, 2 * cur, S1, (scratch + v, cur), ng,
+                     src=(scratch, cur, 0))
+        ar, g1, br, g2 = bld.new_aff1_step(self_read=True)
+        br[SB] = off[f"z0_s1_{2 * cur}"] + T
+        g2[SB] = one_pos
+        bld.hint("b", off=scratch + v, span=ng * cur,
+                 c0=off[f"z0_s1_{2 * cur}"], m1=cur - 1)
+        bld.hint("g2", off=scratch + v, span=ng * cur, c0=one_pos)
+        base = scratch
+        cur *= 2
+    perm = np.empty(2 * v, dtype=np.int32)
+    perm[0::2] = base + np.arange(v)
+    perm[1::2] = base + v + np.arange(v)
+    return bld.arrays()._replace(out_perm=perm)
+
+
+def general_mod_schedule(off: dict, p: int, m: int, moiety: int = S0,
+                         redc_only: bool = False):
+    """REDC (and MOD) with a RUNTIME modulus table, fully scheduled
+    (fftree.rs:232-289): the caller packs [evals ‖ a] (REDC) or
+    [evals ‖ a ‖ c] (MOD) along the position axis. a₀⁻¹ is computed by
+    a scheduled Fermat chain (square-and-multiply over p−2, OP_MUL
+    steps) — the reference burns a batch_inversion per call here
+    (fftree.rs:236); this burns ~2·log p steps and stays inside the one
+    executor. ``off``: the pool offsets; ``p``: the field's prime.
+
+    State: V [0,m) evals/result · A [m,2m) · C [2m,3m) (MOD only) ·
+    AI a₀⁻¹ · SA · SB (each m/2) · one.
+    """
+    bs = m // 2
+    base = 2 * m if redc_only else 3 * m
+    ai, sa, sb = base, base + bs, base + 2 * bs
+    one_pos = base + 3 * bs
+    bld = _Builder(one_pos + 1, one_pos=one_pos)
+    I = np.arange(bs)
+    AI, SA, SB = ai + I, sa + I, sb + I
+    A0, A1 = m + 2 * I, m + 2 * I + 1
+    actAI = dict(off=ai, span=bs)
+    actSA = dict(off=sa, span=bs)
+    actSB = dict(off=sb, span=bs)
+
+    # --- scheduled Fermat: AI = a₀^(p−2) ---
+    ar, g1, br, g2 = bld.new_aff1_step()
+    g1[AI] = A0  # acc = base (top exponent bit); mul-free copy
+    bld.hint("g1", **actAI, c0=m, s2=-1, m2=-1)
+    ebits = bin(p - 2)[2:]
+    for bit in ebits[1:]:
+        ar, g1, br, g2 = bld.new_mul_step()
+        g1[AI] = AI
+        g2[AI] = AI  # square
+        bld.hint("g1", **actAI, c0=ai, m1=-1)
+        bld.hint("g2", **actAI, c0=ai, m1=-1)
+        if bit == "1":
+            ar, g1, br, g2 = bld.new_mul_step()
+            g1[AI] = AI
+            g2[AI] = A0  # multiply by base
+            bld.hint("g1", **actAI, c0=ai, m1=-1)
+            bld.hint("g2", **actAI, c0=m, s2=-1, m2=-1)
+
+    other = S1 if moiety == S0 else S0
+    zinv = (off[f"z0_inv_s1_{m}"] if moiety == S0
+            else off[f"z1_inv_s0_{m}"])
+    neg_zinv = (off[f"neg_z0_inv_s1_{m}"] if moiety == S0
+                else off[f"neg_z1_inv_s0_{m}"])
+
+    def redc_pass(e0, e1):
+        """SA ← h0, SB ← h1; e0/e1 = (row values, hint params) pairs."""
+        e0_rows, e0_p = e0
+        e1_rows, e1_p = e1
+        # t0 = e0·a0inv → SA
+        ar, g1, br, g2 = bld.new_mul_step()
+        g1[SA] = e0_rows
+        g2[SA] = AI
+        bld.hint("g1", **actSA, **e0_p)
+        bld.hint("g2", **actSA, c0=ai, m1=-1)
+        # g1v = extend(t0, other) in place
+        if bs > 1:
+            _emit_extend(bld, off, m, other, (sa, bs), 1)
+        # g1v·a1 in place
+        ar, g1, br, g2 = bld.new_mul_step()
+        g1[SA] = SA
+        g2[SA] = A1
+        bld.hint("g1", **actSA, c0=sa, m1=-1)
+        bld.hint("g2", **actSA, c0=m + 1, s2=-1, m2=-1)
+        # h1 = zinv·e1 + neg_zinv·(g1v·a1) → SB
+        ar, g1, br, g2 = bld.new_step()
+        ar[SB] = zinv + I
+        g1[SB] = e1_rows
+        br[SB] = neg_zinv + I
+        g2[SB] = SA
+        bld.hint("a", **actSB, c0=zinv, m1=-1)
+        bld.hint("g1", **actSB, **e1_p)
+        bld.hint("b", **actSB, c0=neg_zinv, m1=-1)
+        bld.hint("g2", **actSB, c0=sa, m1=-1)
+        # h0 = extend(h1, moiety) → SA
+        if bs > 1:
+            _emit_extend(bld, off, m, moiety, (sa, bs), 1,
+                         src=(sb, bs, 0))
+        else:
+            ar, g1, br, g2 = bld.new_step()
+            g1[SA] = SB
+            bld.hint("g1", **actSA, c0=sb, m1=-1)
+
+    redc_pass((2 * I, dict(s2=-1, m2=-1)),
+              (2 * I + 1, dict(c0=1, s2=-1, m2=-1)))
+    if not redc_only:
+        # scale by c (hc0 = h0·c_even, hc1 = h1·c_odd): SA and SB are
+        # adjacent, so one mul step with a parity-like select on the
+        # bs-bit covers both halves
+        ar, g1, br, g2 = bld.new_mul_step()
+        g1[SA] = SA
+        g2[SA] = 2 * m + 2 * I
+        g1[SB] = SB
+        g2[SB] = 2 * m + 2 * I + 1
+        bld.hint("g1", off=sa, span=2 * bs, c0=sa, m1=-1)
+        bld.hint("g2", off=sa, span=2 * bs, sb=_ilog2(bs),
+                 c0=2 * m, c1=2 * m - 2 * bs + 1, s2=-1, m2=-1)
+        redc_pass((SA, dict(c0=sa, m1=-1)), (SB, dict(c0=sb, m1=-1)))
+    # interleave (h0, h1) onto V (mul-free copy step)
+    ar, g1, br, g2 = bld.new_aff1_step()
+    g1[2 * I] = SA
+    g1[2 * I + 1] = SB
+    bld.hint("g1", off=0, span=m, sb=0, c0=sa, c1=sb, s2=1, m2=-1)
     return bld.arrays()

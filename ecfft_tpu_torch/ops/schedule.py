@@ -7,7 +7,9 @@ The port's counterpart of the device half of ``ecfft_tpu/ops/schedule.py``
   into one (P, L) int32 tensor, with the same rows and offsets as the JAX
   package's ``build_pool`` (tested);
 - :func:`run_schedule` runs a schedule over a (B, m, L) batch: it packs
-  the (W, L, B) state, steps through the schedule, and unpacks.
+  the (W, L, B) state (with the unbatched extras of a general-modulus
+  REDC/MOD behind the batch's rows), steps through the schedule, and
+  unpacks the first rows or the rows its ``out_perm`` names.
 
 The executor is a Python loop over the steps. Each step's opcode, window
 start, formula scalars and D-engine parameters come from the schedule's
@@ -16,7 +18,11 @@ synthesises the index rows in torch (a mirror of ``_synth_jnp``, or a
 residual bank row), gathers x1/x2 with ``index_select`` into buffers of
 their own, runs the running-diagonal coefficient engine for the branch
 the step's DOP needs, and hands the window to one of the three in-place
-step wrappers of ``ops/step.py``. Every index is clamped as ``jnp.clip``
+step wrappers of ``ops/step.py``. An OP_MUL step goes to ``step.mulss``
+(a kernel of its own on the card); an OP_CMPSEL step is plain PyTorch on
+either device, as the JAX package leaves it to XLA: two gathers compared
+into one bool per batch lane, which stays on the device, and a select
+written into the window. Every index is clamped as ``jnp.clip``
 clamps it in the reference (``index_select`` would raise where
 ``jnp.take`` clips).
 
@@ -46,7 +52,7 @@ from ecfft_tpu_torch.ops.emit import (
     CP_M3, CP_OFF, CP_S2, CP_SB, CP_SPAN, CP_XX, DOP_FINAL, DOP_LEVEL,
     DOP_LEVEL0, DOP_NONE, DP_DOP, DP_HALF, DP_HM, DP_MP0, DP_MP1, DP_MS0,
     DP_MS1, DP_MSI0, DP_MSI1, DP_SHALF, OP_AFF1, OP_AFF1_C, OP_AFF1S,
-    OP_AFF1S_C, OP_AFFINE, OP_AFFINE_C, Schedule, _ilog2)
+    OP_AFF1S_C, OP_AFFINE, OP_AFFINE_C, OP_CMPSEL, OP_MUL, Schedule, _ilog2)
 
 # ----------------------------------------------------------------- pool
 
@@ -134,23 +140,59 @@ def build_pool(spec: FieldSpec, tables: dict) -> tuple[torch.Tensor, dict]:
 
 # ------------------------------------------------------------- executor
 
-_OPS = (OP_AFFINE, OP_AFFINE_C, OP_AFF1, OP_AFF1_C, OP_AFF1S, OP_AFF1S_C)
+_OPS = (OP_AFFINE, OP_AFFINE_C, OP_AFF1, OP_AFF1_C, OP_AFF1S, OP_AFF1S_C,
+        OP_MUL, OP_CMPSEL)
 _FROM_SCRATCH = (OP_AFFINE_C, OP_AFF1_C, OP_AFF1S_C)
 
 
 def to_state(batch, W: int, one_pos: int):
-    """(B, m, L) batch → (W, L, B) state with a constant 1 at one_pos."""
+    """(B, m, L) batch → (W, L, B) state with a constant 1 at one_pos.
+
+    ``batch`` may be a tuple of parts laid one after the other along the
+    position axis (the general-modulus REDC/MOD pack [evals ‖ a ‖ c]): the
+    first is the (B, m, L) batch, the others unbatched (rows, L) tables
+    that every lane gets."""
+    batch, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, m, L = batch.shape
     x = batch.new_zeros((W, L, B))
     x[:m] = batch.permute(1, 2, 0)
+    for part in extras:
+        x[m:m + part.shape[0]] = part.unsqueeze(-1)
+        m += part.shape[0]
     if W > m:
         x[one_pos, 0, :] = 1
     return x
 
 
-def from_state(state, m: int):
-    """(W, L, B) state → (B, m, L) view of the value lane."""
-    return state[:m].permute(2, 0, 1)
+def from_state(state, m: int, out_perm=None):
+    """(W, L, B) state → (B, m, L): a view of the value lane, or with
+    ``out_perm`` (an index tensor of m state rows) those rows."""
+    rows = state[:m] if out_perm is None else state.index_select(0, out_perm)
+    return rows.permute(2, 0, 1)
+
+
+def lane_chunks(batch, chunk: int):
+    """The payload of each run of at most ``chunk`` batch lanes, with its
+    slice: the batch cut along its first axis, the unbatched extras of a
+    tuple payload whole in every chunk."""
+    first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
+    for c0 in range(0, first.shape[0], chunk):
+        sl = slice(c0, c0 + chunk)
+        yield sl, ((first[sl], *extras) if extras else first[sl])
+
+
+def cmpsel(x, gather, start: int) -> None:
+    """The OP_CMPSEL step on the window at ``start`` of the state ``x``,
+    with ``gather(ci)`` the state's rows at index column ci:
+    x[start+q] ← x[g1[q]] where x[a[q]] equals x[b[q]] on every row and
+    limb of the lane, else x[g2[q]]. Every row of the window is compared
+    (inactive rows have a = b = the row itself), and limbs are canonical,
+    so equal limbs mean equal values. The bool per lane stays on the
+    device; the compared windows are free before the other two are
+    gathered."""
+    comp = (gather(0) == gather(2)).all(dim=0).all(dim=0)  # (B,)
+    x1 = gather(1)
+    torch.where(comp, x1, gather(3), out=x[start:start + x1.shape[0]])
 
 
 def _synth(cp, p):
@@ -247,9 +289,7 @@ def coeff_rows(pool, rows, scratch_rows, pad_row, bsx: int):
 
 def check_opcode(op: int) -> None:
     if op not in _OPS:
-        raise NotImplementedError(
-            f"opcode {op} (OP_MUL / OP_CMPSEL) is not on the ENTER/EXIT "
-            "path and not ported yet (ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown opcode {op}")
 
 
 def _run_steps(spec: FieldSpec, pool, sched: Schedule, bank, x):
@@ -276,9 +316,14 @@ def _run_steps(spec: FieldSpec, pool, sched: Schedule, bank, x):
             return coeff_rows(pool, col_row(sched, bank, t, ci, p),
                               scratch_rows, pad_row, bsx)
 
-        x2 = gather(3)
         CA, CB, D, iD = _d_engine(spec, pool, dp[t], D, iD, op)
-        if op in (OP_AFFINE, OP_AFFINE_C):
+        if op == OP_CMPSEL:
+            cmpsel(x, gather, start)
+            continue
+        x2 = gather(3)
+        if op == OP_MUL:
+            step.mulss(spec, gather(1), x2, x, start)
+        elif op in (OP_AFFINE, OP_AFFINE_C):
             step.aff2g_ip(spec, coeffs(0, CA, one_row),
                           coeffs(2, CB, zero_row), x, gather(1), x2, start)
         elif op in (OP_AFF1, OP_AFF1_C):
@@ -293,12 +338,17 @@ _ALLOC_MARGIN = 256 << 20  # room for the caching allocator's fragmentation
 
 def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int):
     """(per-lane bytes, fixed bytes) of running ``sched`` on a batch of B
-    by either executor. Per lane: the int32 state and two gathered windows.
-    Fixed: the whole (B, m_out, L) output, and the per-step temporaries that do not grow
-    with the batch (coefficient rows, int64 index rows, the D-engine's
-    planes and row products), with a margin for the allocator."""
+    by either executor. Per lane: the int32 state (the extras of a tuple
+    payload are rows of it) and two gathered windows, or the m_out rows an
+    ``out_perm`` gathers once the windows are free, whichever is larger; an
+    OP_CMPSEL step frees its two compared windows before it gathers the two
+    it selects from, and its (A, L, B) bool is covered by the margin.
+    Fixed: the whole (B, m_out, L) output, and the per-step temporaries
+    that do not grow with the batch (coefficient rows, int64 index rows,
+    the D-engine's planes and row products), with a margin for the
+    allocator."""
     bsx = max(sched.bs_max, 1)
-    per_lane = (sched.W + 2 * sched.A) * L * 4
+    per_lane = (sched.W + max(2 * sched.A, m_out)) * L * 4
     fixed = (B * m_out * L * 4 + 4 * sched.A * L * 4 + 32 * sched.A * 8
              + 16 * bsx * L * 4 + _ALLOC_MARGIN)
     return per_lane, fixed
@@ -332,7 +382,10 @@ def unrolled_selected() -> bool:
 
 def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
                  one_pos: int, m_out: int, meta=None):
-    """Execute a schedule: (B, m, L) int32 ``batch`` → (B, m_out, L).
+    """Execute a schedule: (B, m, L) int32 ``batch`` → (B, m_out, L), the
+    first m_out rows of the final state or the rows ``sched.out_perm``
+    names. ``batch`` may be a tuple (batch, *extras) with unbatched
+    (rows, L) extras (see :func:`to_state`).
 
     ``pool``: (P, L) int32 on the batch's device; ``bank``: the
     schedule's residual row bank as an int64 tensor on that device.
@@ -346,11 +399,22 @@ def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
 
         return run_unrolled(spec, pool, sched, bank, batch, one_pos, m_out,
                             meta)
-    B, _, L = batch.shape
-    out = batch.new_empty((B, m_out, L))
-    chunk = _lanes_per_chunk(sched, L, B, m_out, batch.device)
-    for c0 in range(0, B, chunk):
-        x = to_state(batch[c0:c0 + chunk], sched.W, one_pos)
-        _run_steps(spec, pool, sched, bank, x)
-        out[c0:c0 + chunk] = from_state(x, m_out)
+    return run_chunks(
+        sched, batch, one_pos, m_out,
+        lambda x: _run_steps(spec, pool, sched, bank, x))
+
+
+def run_chunks(sched: Schedule, batch, one_pos: int, m_out: int, run_steps):
+    """Pack, run (``run_steps(state)``, in place) and unpack ``batch`` in
+    as many lane chunks as the device's memory asks for."""
+    first = batch[0] if isinstance(batch, (tuple, list)) else batch
+    B, _, L = first.shape
+    out = first.new_empty((B, m_out, L))
+    perm = (None if sched.out_perm is None else
+            torch.from_numpy(sched.out_perm).to(first.device, torch.int64))
+    chunk = _lanes_per_chunk(sched, L, B, m_out, first.device)
+    for sl, part in lane_chunks(batch, chunk):
+        x = to_state(part, sched.W, one_pos)
+        run_steps(x)
+        out[sl] = from_state(x, m_out, perm)
     return out

@@ -17,6 +17,13 @@ of the caller's choosing: the state itself, or a new window (start 0):
 - :func:`muladd1`: out[s+q] ← x1[q] + C[q]·x2[q]
 - :func:`muladd2`: out[s+q] ← A[q]·x1[q] + B[q]·x2[q]
 
+:func:`mulss` is the state×state product of OP_MUL steps (VANISH's merges,
+the general-modulus REDC/MOD), which the JAX package leaves to XLA
+(``_mulss``, ``ecfft_tpu/ops/schedule.py``): both factors are gathered
+windows, and it reads no coefficient row:
+
+- :func:`mulss`: out[s+q] ← x1[q]·x2[q]
+
 A CUDA tensor goes to the hand-written kernel in ``csrc/step_kernels.cu``
 (built at first use by ``ops/_build.py``), or the wrapper raises: there
 is no fallback. A CPU tensor goes to the plain PyTorch version beside it
@@ -28,7 +35,8 @@ For the in-place steps x1 and x2 must be buffers of their own, never
 views of the state: the in-place write is race-free only because every
 thread reads its inputs from them (or, for the self-read step, from the
 one state element it writes). The muladd pair also takes x1 as the very
-window it writes (OP_AFF1S), for the same reason.
+window it writes (OP_AFF1S), for the same reason. :func:`mulss` takes no
+view of its output at all; its two factors may be one buffer (a square).
 """
 
 from __future__ import annotations
@@ -64,6 +72,12 @@ def _muladd2_cols(spec: FieldSpec, A, x1, B, x2):
     return fd._reduce_cols(spec, c)
 
 
+def _mulss_cols(spec: FieldSpec, x1, x2):
+    """x1·x2 elementwise in the (W, L, B) layout, in int64: the column
+    pipeline of ``fields.device.mul`` with both factors batched."""
+    return fd._reduce_cols(spec, fd._conv_cols(spec, x1, x2))
+
+
 # --------------------------------------------------------------- kernels
 
 _lib = None
@@ -76,6 +90,7 @@ _SIGNATURES = {
     "ecfft_aff2g_ip": (5, 3), "ecfft_muladd1": (4, 3),
     "ecfft_muladd2": (5, 3), "ecfft_fused_bf1": (2, 4),
     "ecfft_fused_bf2": (3, 4), "ecfft_fused_cascade": (4, 4),
+    "ecfft_mulss": (3, 3),
 }
 
 
@@ -281,12 +296,34 @@ def muladd2(spec: FieldSpec, A_, B_, x1, x2, out, start: int) -> None:
                                          B_.unsqueeze(-1), x2)
 
 
+def mulss(spec: FieldSpec, x1, x2, out, start: int) -> None:
+    """out[start+q] ← x1[q]·x2[q] for a (W, L, B) ``out`` (OP_MUL). x1 and
+    x2 are (A, L, B) windows in buffers of their own (a gathered row may lie
+    inside the window that is written), and may be the same buffer."""
+    if x2.dim() != 3:
+        raise ValueError(f"windows must be (A, L, B), got {tuple(x2.shape)}")
+    A = x2.shape[0]
+    check_state(spec, out, start, A)
+    check_operands(spec, out.device, (out,), (), (x1, x2), A, out.shape[2])
+    own = out.untyped_storage().data_ptr()
+    if own in (x1.untyped_storage().data_ptr(),
+               x2.untyped_storage().data_ptr()):
+        raise ValueError("a factor may not share the output's storage")
+    if out.is_cuda:
+        launch("ecfft_mulss", spec, out.device, x1, x2, out, start, A,
+               out.shape[2])
+        mulss.launches += 1
+        return
+    out[start:start + A] = _mulss_cols(spec, x1, x2)
+
+
 aff1s_ip.launches = 0
 aff1g_ip.launches = 0
 aff2g_ip.launches = 0
 muladd1.launches = 0
 muladd2.launches = 0
-STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2)
+mulss.launches = 0
+STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2, mulss)
 
 
 def mul_rows(spec: FieldSpec, a, b):

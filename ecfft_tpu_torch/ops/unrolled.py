@@ -21,8 +21,10 @@ Every other step gathers its windows as the scan executor does and goes
 to :func:`ops.step.muladd1` / :func:`ops.step.muladd2`, which write the
 window of the state directly (the JAX package computes a new window and
 writes it with ``dynamic_update_slice``; each thread here reads the
-elements it writes before it writes them, so no copy is needed). Every
-step produces canonical residues, so the outputs equal the scan
+elements it writes before it writes them, so no copy is needed). An
+OP_MUL step goes to :func:`ops.step.mulss` and an OP_CMPSEL step to
+:func:`ops.schedule.cmpsel`, as in the scan executor, behind the flush of
+any pending run like every generic step. Every step produces canonical residues, so the outputs equal the scan
 executor's bit for bit.
 
 Each fused wrapper launches its hand-written kernel in
@@ -56,7 +58,7 @@ from ecfft_tpu_torch.ops import schedule as sch
 from ecfft_tpu_torch.ops import step
 from ecfft_tpu_torch.ops.emit import (
     CP_DC, CP_DK, DOP_NONE, DP_DOP, DP_HALF, OP_AFF1S, OP_AFF1S_C,
-    OP_AFFINE, OP_AFFINE_C, Schedule, _synth_np)
+    OP_AFFINE, OP_AFFINE_C, OP_CMPSEL, OP_MUL, Schedule, _synth_np)
 
 TW = 128  # fused row tile: pair levels need TW | half, in-tile 2·half | TW
 MAX_LEVELS = 16  # levels per cascade launch (MAX_LEVELS in fused_kernels.cu)
@@ -297,14 +299,9 @@ def run_unrolled(spec: FieldSpec, pool, sched: Schedule, bank, batch,
     levels longer than ``max_levels`` are split."""
     if meta is None:
         meta = _SchedMeta(sched)
-    B, _, L = batch.shape
-    out = batch.new_empty((B, m_out, L))
-    chunk = sch._lanes_per_chunk(sched, L, B, m_out, batch.device)
-    for c0 in range(0, B, chunk):
-        x = sch.to_state(batch[c0:c0 + chunk], sched.W, one_pos)
-        _run_steps(spec, pool, sched, meta, bank, x, max_levels)
-        out[c0:c0 + chunk] = sch.from_state(x, m_out)
-    return out
+    return sch.run_chunks(
+        sched, batch, one_pos, m_out,
+        lambda x: _run_steps(spec, pool, sched, meta, bank, x, max_levels))
 
 
 def _run_steps(spec: FieldSpec, pool, sched: Schedule, meta: _SchedMeta,
@@ -377,10 +374,15 @@ def _run_steps(spec: FieldSpec, pool, sched: Schedule, meta: _SchedMeta,
             continue
 
         flush()
+        if op == OP_CMPSEL:
+            sch.cmpsel(x, gather, start)
+            continue
         x2 = gather(3)
         x1 = (x[start:start + A] if op in (OP_AFF1S, OP_AFF1S_C)
               else gather(1))
-        if op in (OP_AFFINE, OP_AFFINE_C):
+        if op == OP_MUL:
+            step.mulss(spec, x1, x2, x, start)
+        elif op in (OP_AFFINE, OP_AFFINE_C):
             step.muladd2(spec, coeffs(0, CA, one_row),
                          coeffs(2, CB, zero_row), x1, x2, x, start)
         else:

@@ -143,6 +143,60 @@ def test_out_of_place_kernel_matches_plain_version(card, kind, B):
         assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("B", [1, 3, 128])
+@pytest.mark.parametrize("spec", [SPEC, spec_for_prime(2**255 - 19)],
+                         ids=["secp256k1", "ed25519"])
+def test_mulss_kernel_matches_plain_version(card, spec, B):
+    """The state×state product: two windows of their own, then one buffer
+    as both factors (a square), with every value p − 1 in the first rows;
+    rows outside the window stay."""
+    gen = torch.Generator().manual_seed(13 + B)
+    W, A, start = 520, 200, 264
+    x1, x2 = (_limbs(gen, A, B).permute(0, 2, 1).contiguous()
+              for _ in range(2))
+    x1[..., -1, :] &= 0x7FFF  # below 2^255 - 19 too
+    x2[..., -1, :] &= 0x7FFF
+    top = torch.tensor(spec.to_limbs(spec.p - 1), dtype=torch.int32)
+    x1[:8] = x2[:8] = top[:, None]
+    state = _limbs(gen, W, B).permute(0, 2, 1).contiguous()
+    before = step.mulss.launches
+    for a, b in ((x1, x2), (x2, x2)):
+        want = state.clone()
+        step.mulss(spec, a, b, want, start)
+        got = state.to(card)
+        ac = a.to(card)
+        step.mulss(spec, ac, ac if a is b else b.to(card), got, start)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert not torch.equal(want, state)
+    assert step.mulss.launches == before + 2
+
+
+def test_algorithms_on_card_match_cpu(card, monkeypatch):
+    """The seven other methods on the card, on each executor, against the
+    CPU's plain versions at n = 1024 (the general modulus at m = 16)."""
+    n, gen = 1024, torch.Generator().manual_seed(17)
+    cpu = build_fftree_native("secp256k1", n, device="cpu")
+    x, h = _limbs(gen, 2, n), _limbs(gen, 2, n // 2)
+    g, a, c = _limbs(gen, 2, 16), _limbs(gen, 16), _limbs(gen, 16)
+    calls = [("extend", (h, 0)), ("extend", (h, 1)), ("mextend", (h, 0)),
+             ("mextend", (h, 1)), ("degree", (cpu.enter(x),)),
+             ("redc_z0", (x,)), ("redc_z1", (x,)), ("modular_reduce", (x,)),
+             ("vanish", (h,)), ("redc_z0", (g, a)), ("redc_z1", (g, a)),
+             ("modular_reduce", (g, a, c))]
+    want = [getattr(cpu, m)(*args) for m, args in calls]
+    for ex in ("scan", "unrolled"):
+        if ex == "unrolled":
+            monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+        gpu = build_fftree_native("secp256k1", n, device=card)
+        before = step.mulss.launches
+        for (m, args), w in zip(calls, want):
+            got = getattr(gpu, m)(*(t.to(card) if isinstance(t, torch.Tensor)
+                                    else t for t in args))
+            assert torch.equal(got.cpu(), w), (ex, m)
+        assert step.mulss.launches > before
+
+
 # (form, TW, half or halves, kinds): pair levels one and two tiles apart,
 # and cascades of mixed kinds, at the production tile and at TW = 8. A
 # pair-level block holds the smallest power of two of lanes >= B, up to
@@ -202,13 +256,13 @@ def test_unrolled_enter_exit_on_card_match_cpu(card, monkeypatch, runs):
                                      n, meta, max_levels)
 
     counts = [w.launches for w in (*unrolled.FUSED_WRAPPERS,
-                                   *step.STEP_WRAPPERS[3:])]
+                                   *step.STEP_WRAPPERS[3:5])]
     evals = run("enter", coeffs.to(card))
     assert torch.equal(evals.cpu(), want)
     assert torch.equal(run("exit", evals).cpu(), coeffs)
     assert torch.equal(gpu.enter(coeffs.to(card)), evals)
     after = [w.launches for w in (*unrolled.FUSED_WRAPPERS,
-                                  *step.STEP_WRAPPERS[3:])]
+                                  *step.STEP_WRAPPERS[3:5])]
     assert all(a > b for a, b in zip(after, counts)), (counts, after)
 
 

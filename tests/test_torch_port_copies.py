@@ -78,6 +78,33 @@ def test_copies_have_their_originals_source(mod):
         assert inspect.getsource(getattr(port, name)) == want, name
 
 
+NATIVE_METHODS = ["_io", "enter", "exit", "extend", "mextend", "degree",
+                  "redc_z0", "modular_reduce", "vanish", "table", "mats"]
+
+
+@pytest.mark.parametrize("name", NATIVE_METHODS)
+def test_native_bindings_have_their_originals_source(name):
+    """Each method of the port's ``NativeFFTree`` that calls the engine
+    has the source of its original."""
+    from ecfft_tpu import native as jnat
+    from ecfft_tpu_torch import native as tnat
+
+    assert inspect.getsource(getattr(tnat.NativeFFTree, name)) == \
+        inspect.getsource(getattr(jnat.NativeFFTree, name))
+
+
+def test_native_bindings_declare_the_originals_argument_types():
+    from ecfft_tpu import native as jnat
+    from ecfft_tpu_torch import native as tnat
+
+    for fn in ("ecn_enter", "ecn_exit", "ecn_extend", "ecn_mextend",
+               "ecn_degree", "ecn_redc", "ecn_mod", "ecn_vanish",
+               "ecn_table", "ecn_mats", "ecn_batch_inv"):
+        port, orig = getattr(tnat.lib(), fn), getattr(jnat.lib(), fn)
+        assert port.argtypes == orig.argtypes, fn
+    assert tnat.lib().ecn_degree.restype is jnat.lib().ecn_degree.restype
+
+
 @pytest.mark.parametrize("field", ["secp256k1", "m31"])
 def test_field_spec_constants_match(field):
     a, b = jreg.FIELDS[field], treg.FIELDS[field]

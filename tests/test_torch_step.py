@@ -109,6 +109,55 @@ def test_field_mul_neg_and_row_products_match_ints():
     assert fd.decode(SPEC, fd.ones(SPEC, (3,)))[2] == 1
 
 
+def test_mulss_plain_version_matches_ints():
+    """The state×state product's plain version against python ints: the
+    edge values (0, 1, p − 1, 2^255 among them) each with each, seeded
+    random values, and x1 the very buffer x2 is (a square); rows outside
+    the window stay, and the plain path counts no launch."""
+    rng = np.random.RandomState(19)
+    E = len(EDGE)
+    x1_i = np.concatenate([np.repeat(np.asarray(EDGE, dtype=object), E),
+                           _ints(rng, (A,), False)])[:, None].repeat(B, 1)
+    x2_i = np.concatenate([np.tile(np.asarray(EDGE, dtype=object), E),
+                           _ints(rng, (A,), False)])[:, None].repeat(B, 1)
+    x2_i[:, 1:] = _ints(rng, (E * E + A, B - 1), False)
+    rows = E * E + A
+    st_i = _ints(rng, (rows + 2 * START, B), False)
+    x1, x2, state = _layout(x1_i), _layout(x2_i), _layout(st_i)
+    launches = step.mulss.launches
+    got = state.clone()
+    step.mulss(SPEC, x1, x2, got, START)
+    sq = state.clone()
+    step.mulss(SPEC, x2, x2, sq, START)
+    assert step.mulss.launches == launches
+    for t in (got, sq):
+        assert t.dtype == torch.int32
+        assert torch.equal(t[:START], state[:START])
+        assert torch.equal(t[START + rows:], state[START + rows:])
+    dec = fd.decode(SPEC, got[START:START + rows].permute(0, 2, 1))
+    dsq = fd.decode(SPEC, sq[START:START + rows].permute(0, 2, 1))
+    for q in range(rows):
+        for b in range(B):
+            assert dec[q, b] == x1_i[q, b] * x2_i[q, b] % P, (q, b)
+            assert dsq[q, b] == x2_i[q, b] ** 2 % P, (q, b)
+
+
+@pytest.mark.parametrize("bad", ["alias-x1", "alias-x2", "shape", "window"])
+def test_mulss_rejects_bad_operands(bad):
+    state, _, x = _operands()
+    x1, x2, start = x, x.clone(), START
+    if bad == "alias-x1":
+        x1 = state[:A]
+    elif bad == "alias-x2":
+        x2 = state[START:START + A]
+    elif bad == "shape":
+        x1 = x1[:A - 1]
+    else:
+        start = W - A + 1
+    with pytest.raises(ValueError):
+        step.mulss(SPEC, x1, x2, state, start)
+
+
 def _operands():
     z = torch.zeros((W, L, B), dtype=torch.int32)
     return z, torch.zeros((A, L), dtype=torch.int32), \

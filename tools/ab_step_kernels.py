@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's eight kernels from an older source tree and the current
+"""Time the port's nine kernels from an older source tree and the current
 one, in turns, on one card.
 
 Usage, from the repository root, with the kernel sources of an earlier
@@ -27,8 +27,10 @@ over 20 launches after 0.25 s of warm-up launches, and once more through
 the port's own wrapper (the library as ``ops/step.py`` loads it), with the
 SM clock and power draw read after each. The cascade runs 14 levels
 (halves 64 .. 1 twice, the eighth of kind 1), the pair levels half 128
-and then half 16384. Prints one line per kernel and shape. Imports
-nothing of JAX. Needs one CUDA card and ``nvcc``.
+and then half 16384. A kernel that an older library lacks (``ecfft_mulss``
+before it was written) is timed from the libraries that have it. Prints
+one line per kernel and shape. Imports nothing of JAX. Needs one CUDA card
+and ``nvcc``.
 """
 
 import ctypes
@@ -147,6 +149,7 @@ def kernel_args(name: str, o: dict, lv, half: int) -> tuple:
         "ecfft_fused_bf2": (ca, cb, s, FSTART, half, A, B),
         "ecfft_fused_cascade": (ctypes.byref(lv), o["cw"], o["aw"], s,
                                 FSTART, unrolled.TW, A, B),
+        "ecfft_mulss": (x1, x2, s, *step_ints),
     }[name]
 
 
@@ -166,6 +169,7 @@ def wrapper_call(name: str, o: dict, half: int):
                                                       FSTART, half),
         "ecfft_fused_cascade": lambda: unrolled.fused_cascade(
             SPEC, s, o["cw"], o["aw"], FSTART, HALVES, KINDS),
+        "ecfft_mulss": lambda: step.mulss(SPEC, x1, x2, s, START),
     }[name]
 
 
@@ -238,8 +242,9 @@ def main(argv) -> int:
         (name, FAR_HALF) for name in ("ecfft_fused_bf1", "ecfft_fused_bf2")]
     for name, half in cases:
         runs = {k: launcher(lib, name, o, lv, half)
-                for k, lib in libs.items()}
-        times = [(k, ms(runs[k]), smi()) for k in order]
+                for k, lib in libs.items()
+                if hasattr(ctypes.CDLL(lib), name)}
+        times = [(k, ms(runs[k]), smi()) for k in order if k in runs]
         times.append(("current via the wrapper",
                       ms(wrapper_call(name, o, half)), smi()))
         what = f"{name} half {half}" if "_bf" in name else name

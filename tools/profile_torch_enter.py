@@ -3,11 +3,17 @@
 
 Usage, from the repository root:
 
-    python3 tools/profile_torch_enter.py [enter|exit] [n] [batch]
+    python3 tools/profile_torch_enter.py [method] [n] [batch]
 
-(default: enter 65536 256, the main path). Builds a secp256k1 tree with
-the native engine, runs the transform once to warm up, then once more
-under ``torch.profiler``. Prints the wall time of the profiled call
+(default: enter 65536 256, the main path). ``method`` is one of the
+FFTree's: enter, exit, extend, mextend, degree, redc_z0, redc_z1,
+modular_reduce, vanish; or general_redc_z0, general_modular_reduce for a
+modulus table given at run time (a seeded random one). ``n`` is the
+number of points of the input, on a tree of that size (twice that size
+for extend, mextend and vanish); random evaluations have full degree.
+``ECFFT_EXECUTOR=unrolled`` in the environment selects the unrolled
+executor. Builds a secp256k1 tree with the native engine, runs the
+transform once to warm up, then once more under ``torch.profiler``. Prints the wall time of the profiled call
 (fenced by ``torch.cuda.synchronize()``), the device kernels grouped by
 name with their time, share and launches, the device busy share (the
 union of the kernels' intervals over the wall time, so overlapping
@@ -47,11 +53,24 @@ def main() -> int:
         print("profile_torch_enter: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    tree = build_fftree_native("secp256k1", n, device=dev).prepare()
+    general = alg.startswith("general_")
+    method = alg[len("general_"):] if general else alg
+    size = 2 * n if method in ("extend", "mextend", "vanish") else n
+    tree = build_fftree_native("secp256k1", size, device=dev).prepare(())
     gen = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randint(0, 1 << 15, (batch, n, 16), generator=gen, device=dev,
-                      dtype=torch.int32)  # top limb below p's: canonical
-    run = getattr(tree, alg)
+
+    def limbs(*shape):  # top limb below p's: canonical
+        return torch.randint(0, 1 << 15, (*shape, 16), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    x = limbs(batch, n)
+    tables = ()
+    if general:
+        tables = (limbs(n) | 1,) * (2 if method == "modular_reduce" else 1)
+
+    def run(x):
+        return getattr(tree, method)(x, *tables)
+
     run(x)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
