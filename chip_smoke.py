@@ -10,7 +10,8 @@ stops the run with a non-zero exit:
    count and top SM clock, the CUDA version, ``nvcc`` and ``triton``;
 2. build: the kernels (``ecfft_tpu_torch/csrc``) and the native engine,
    then the instructions one thread of each kernel issues, per pipe, read
-   from its SASS (``tools/sass_count.py``; for the operation bounds);
+   from its SASS (``tools/sass_count.py``; for the operation bounds), and
+   each kernel's registers and shared bytes, the M31 forms' too;
 3. set-up: a native-built secp256k1 tree at n = 2^16, its pool, the
    ENTER/EXIT schedules and the unrolled executor's fusion analysis;
 4. each of the nine kernels against its plain PyTorch version on the
@@ -22,7 +23,11 @@ stops the run with a non-zero exit:
    for secp256k1 and for 2^255 − 19; then each timed at its main shape
    (CUDA events, with the SM clock and power draw read just after) beside
    its plain version, its bound (bytes or word products) and this
-   design's issue bound;
+   design's issue bound; then the nine M31 forms likewise (edge values 0,
+   1, p − 1, p − 2, 2^30, (p − 1)/2, 2^16 and seeded random ones at B = 1
+   and 256, rows outside the window untouched, the square, then the M31
+   main shapes at B = 2048), each timed beside its plain version, its
+   byte bound and the int64 PyTorch expression of the same function;
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -40,8 +45,17 @@ stops the run with a non-zero exit:
    255, the two executors against each other on the whole batch, its
    launch counts against the schedule's steps and the fusion analysis,
    and timed warm (best of 2, fenced by ``torch.cuda.synchronize()``);
-9. a JSON line of the kernels, the ``nvidia-smi`` line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+9. M31: a native-built tree at n = 2^16 with its pool, schedules and
+   unrolled analysis; a batch of B = 2048 through all eight algorithms on
+   both executors (ENTER with its EXIT round trip, then the others as in
+   phase 8), each gated bit for bit against the native engine on lanes 0
+   and B − 1 and the executors against each other on the whole batch, its
+   M31 launches against the schedule and the analysis, timed warm with
+   the peak device memory; every M31 form must run;
+10. a JSON line of the eighteen kernels (the nine 16-limb forms, whose
+   launches are phases 6–8's, and the nine M31 forms, phase 9's), the
+   ``nvidia-smi`` line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -72,6 +86,9 @@ P = SPEC.p
 L = SPEC.num_limbs
 ED = spec_for_prime(2**255 - 19)  # a second fold-friendly prime, slack 1
 EDGE = [0, 1, P - 1, P - 2, P // 2, 2**16, 2**255 % P, (P - 1) // 2]
+M31 = FIELDS["m31"]
+M31_N, M31_BATCH = 1 << 16, 2048  # (131200, 1, 2048) int32 = 1.07 GB
+M31_EDGE = [0, 1, M31.p - 1, M31.p - 2, 1 << 30, (M31.p - 1) // 2, 1 << 16]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
 # sm_90, per SM and clock (the CUDA C++ Programming Guide's throughput
 # table, compute capability 9.0): 64 results of "32-bit integer multiply,
@@ -89,8 +106,10 @@ FOLD_ROUNDS = 2
 # to 8% slower for a few tens of ms (tools/ab_step_kernels.py)
 SETTLE_S = 0.25
 CASCADE_LANES, CASCADE_THREADS = 4, 512  # CL and CT in fused_kernels.cu
+M31_CASCADE_LANES, M31_CASCADE_THREADS = 8, 1024  # M31_CL, M31_CT
 STEP_SRC = "ecfft_tpu_torch/csrc/step_kernels.cu"
 FUSED_SRC = "ecfft_tpu_torch/csrc/fused_kernels.cu"
+M31_SRC = "ecfft_tpu_torch/csrc/m31_kernels.cu"
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "aff1s_ip": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:298"),
     "aff1g_ip": (STEP_SRC, "ecfft_tpu/ops/pallas_step.py:311"),
@@ -118,6 +137,14 @@ SASS_NAMES = {"aff1s_ip": "aff1s_kernel", "aff1g_ip": "step_kernelILi1E",
               "fused_cascade": "cascade_kernel", "mulss": "mulss_kernel"}
 WORD_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade",
                 "mulss")
+# the M31 forms' SASS functions (csrc/m31_kernels.cu); the 16-limb names
+# above are matched only in functions without "m31_" in their name
+M31_SASS_NAMES = {
+    "aff1s_ip": "m31_step_kernelILi0E", "aff1g_ip": "m31_step_kernelILi1E",
+    "aff2g_ip": "m31_step_kernelILi2E", "muladd1": "m31_step_kernelILi1E",
+    "muladd2": "m31_step_kernelILi2E", "mulss": "m31_step_kernelILi3E",
+    "fused_bf1": "m31_pair_kernelILb0E", "fused_bf2": "m31_pair_kernelILb1E",
+    "fused_cascade": "m31_cascade_kernel"}
 
 
 def log(*a):
@@ -144,7 +171,10 @@ class Phase:
 
 def rand_limbs(shape, gen, spec=SPEC):
     """Canonical values as (..., L) int32 limbs: uniform 16-bit limbs
-    with a top limb below p's (so every value is < p)."""
+    with a top limb below p's (so every value is < p), or M31 values."""
+    if fd.is_m31(spec):
+        return torch.randint(0, spec.p, (*shape, 1), generator=gen,
+                             device=DEV, dtype=torch.int32)
     x = torch.randint(0, 1 << 16, (*shape, L), generator=gen, device=DEV,
                       dtype=torch.int32)
     top = spec.to_limbs(spec.p)[-1]
@@ -153,13 +183,14 @@ def rand_limbs(shape, gen, spec=SPEC):
     return x
 
 
-def edge_rows(A, B, shift=0):
+def edge_rows(A, B, shift=0, spec=SPEC):
     """(A, L, B) limbs cycling through the edge values, and (A, L) rows
     that pair every edge coefficient with every edge value."""
-    E = len(EDGE)
-    x = fd.encode(SPEC, [[EDGE[(i + b + shift) % E] for b in range(B)]
+    edge = M31_EDGE if fd.is_m31(spec) else EDGE
+    E = len(edge)
+    x = fd.encode(spec, [[edge[(i + b + shift) % E] for b in range(B)]
                          for i in range(A)], DEV)
-    c = fd.encode(SPEC, [EDGE[(i // E + shift) % E] for i in range(A)], DEV)
+    c = fd.encode(spec, [edge[(i // E + shift) % E] for i in range(A)], DEV)
     return x.permute(0, 2, 1).contiguous(), c
 
 
@@ -185,26 +216,34 @@ def cuda_ms(fn, reps, settle_s=0.0):
 
 def reset_counts():
     for w in WRAPPERS.values():
-        w.launches = 0
+        w.launches = w.m31_launches = 0
 
 
-def read_counts():
-    return {k: w.launches for k, w in WRAPPERS.items()}
+def read_counts(spec=SPEC):
+    """Each wrapper's launches of the form that takes ``spec``."""
+    m31 = fd.is_m31(spec)
+    return {k: w.m31_launches if m31 else w.launches
+            for k, w in WRAPPERS.items()}
 
 
 # ------------------------------------------------------------ the bounds
 
 
-def kernel_sass(lib: str) -> dict:
-    """Each wrapper's kernel as SASS instructions (``cuobjdump -sass``)."""
+def kernel_sass(lib: str) -> tuple:
+    """Each wrapper's kernel as SASS instructions (``cuobjdump -sass``):
+    the 16-limb forms', then the M31 forms'."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     funcs = sass_count.functions(subprocess.run(
         [tool, "-sass", lib], capture_output=True, text=True,
         check=True).stdout)
-    found = {k: insts for k, pat in SASS_NAMES.items()
-             for name, insts in funcs.items() if pat in name}
-    check(set(found) == set(SASS_NAMES), f"SASS functions found: {found}")
-    return found
+    out = []
+    for names, m31 in ((SASS_NAMES, False), (M31_SASS_NAMES, True)):
+        found = {k: insts for k, pat in names.items()
+                 for name, insts in funcs.items()
+                 if pat in name and ("m31_" in name) == m31}
+        check(set(found) == set(names), f"SASS functions found: {found}")
+        out.append(found)
+    return tuple(out)
 
 
 def kernel_resources(lib: str) -> list:
@@ -217,32 +256,43 @@ def kernel_resources(lib: str) -> list:
     for i, line in enumerate(lines[:-1]):
         if line.strip().startswith("Function ") and "REG:" in lines[i + 1]:
             name = line.strip()[len("Function "):].rstrip(":")
-            short = next((k for k in SASS_NAMES.values() if k in name), name)
+            names = (M31_SASS_NAMES if "m31_" in name else SASS_NAMES)
+            short = next((k for k in names.values() if k in name), name)
             out.append(f"{short}: {lines[i + 1].strip()}")
-    check(len(out) >= len(set(SASS_NAMES.values())),
+    check(len(out) >= len(set(SASS_NAMES.values()))
+          + len(set(M31_SASS_NAMES.values())),
           f"cuobjdump -res-usage named {len(out)} kernels")
     return out
 
 
 def fold_nonzero(kind, spec=SPEC) -> int:
     """Nonzero digits of F = 2^256 mod p as the kernel's fold reads them:
-    32-bit words for the word kernels, 16-bit limbs for the others."""
+    32-bit words for the word kernels, 16-bit limbs for the others (the
+    M31 forms fold by shifts: none)."""
+    if fd.is_m31(spec):
+        return 0
     fld = step._field(spec)
     return sum(1 for v in (fld.fw if kind in WORD_KERNELS else fld.f) if v)
 
 
-def thread_work(kind, A, B, kinds=()):
+def thread_work(kind, A, B, kinds=(), spec=SPEC):
     """(threads, instructions one thread issues per pipe) of one call
     on a window of A rows and B lanes, along the path this data takes
     (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one block
     per nonzero digit of F in each)."""
-    per = sass_count.thread_counts(SASS[kind], FOLD_ROUNDS,
-                                   fold_nonzero(kind), kinds)
-    # one thread an element: a cascade's blocks are always full, and the
-    # idle threads of a pair level's ragged blocks issue next to nothing
+    m31 = fd.is_m31(spec)
+    per = sass_count.thread_counts((M31_SASS if m31 else SASS)[kind],
+                                   FOLD_ROUNDS, fold_nonzero(kind, spec),
+                                   kinds)
+    # one thread an element (an M31 pair level: a pair): a cascade's
+    # blocks are always full, and the idle threads of a ragged block issue
+    # next to nothing
     if kind == "fused_cascade":
-        threads = (A // unrolled.TW) * -(-B // CASCADE_LANES) \
-            * CASCADE_THREADS
+        lanes, threads = ((M31_CASCADE_LANES, M31_CASCADE_THREADS) if m31
+                          else (CASCADE_LANES, CASCADE_THREADS))
+        threads *= (A // unrolled.TW) * -(-B // lanes)
+    elif m31 and kind in ("fused_bf1", "fused_bf2"):
+        threads = A * B // 2
     else:
         threads = A * B
     return threads, per
@@ -253,7 +303,11 @@ def word_products(kind, kinds=(), spec=SPEC) -> int:
     computes it: 64 per product of two 8-word values, and per reduction
     the fold's products of F's nonzero words by the high half's 8 words,
     then by the words left after one round (the high part is then at
-    most 2F: two words for secp256k1). A cascade sums its levels."""
+    most 2F: two words for secp256k1); one per M31 product, whose
+    reduction is shifts and adds. A cascade sums its levels."""
+    if fd.is_m31(spec):
+        return (sum(1 + k for k in kinds) if kind == "fused_cascade"
+                else 1 + (kind in ("aff2g_ip", "muladd2", "fused_bf2")))
     F = (1 << 256) % spec.p
     fold = sum(1 for k in range(8) if (F >> 32 * k) & 0xFFFFFFFF) * (
         8 + -(-(2 * F).bit_length() // 32))
@@ -263,18 +317,19 @@ def word_products(kind, kinds=(), spec=SPEC) -> int:
     return 64 * (1 + two) + fold
 
 
-def bound(kind, A, B, kinds=()):
+def bound(kind, A, B, kinds=(), spec=SPEC):
     """The least time of one call: the larger of the bytes the function
-    must move (each input read once and each output written once: 64 B
-    per element per window, 64 B per row per coefficient row) over the
-    memory rate, and its word products (:func:`word_products`) over the
-    IMAD.WIDE rate. The same work whatever kernel computes it. Beside
-    it, this design's issue bound: the instructions of its SASS along one
-    thread's path, each pipe's count over its 64 lanes and all of them
-    over the 128 issue lanes, per SM and clock. Returns {bound_ms,
-    bound_by, bytes_bound_ms, ops_bound_ms, design_issue_bound_ms,
-    design_issue_by}."""
-    E, el, row = A * B, L * 4, A * L * 4
+    must move (each input read once and each output written once: 4L B
+    per element per window, 4L B per row per coefficient row; L = 16, or
+    1 for M31) over the memory rate, and its word products
+    (:func:`word_products`) over the IMAD.WIDE rate. The same work
+    whatever kernel computes it. Beside it, this design's issue bound: the
+    instructions of its SASS along one thread's path, each pipe's count
+    over its 64 lanes and all of them over the 128 issue lanes, per SM and
+    clock. Returns {bound_ms, bound_by, bytes_bound_ms, ops_bound_ms,
+    design_issue_bound_ms, design_issue_by}."""
+    nl = spec.num_limbs
+    E, el, row = A * B, nl * 4, A * nl * 4
     two = kind in ("aff2g_ip", "muladd2", "fused_bf2")
     if kind == "fused_cascade":
         nbytes = 2 * E * el + (len(kinds) + sum(kinds)) * row
@@ -285,9 +340,9 @@ def bound(kind, A, B, kinds=()):
     else:
         nbytes = 3 * E * el + (1 + two) * row
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = (word_products(kind, kinds) * E
+    o_ms = (word_products(kind, kinds, spec) * E
             / (SM_CLOCKS * WORD_PRODUCTS_PER_SM) * 1e3)
-    threads, per = thread_work(kind, A, B, kinds)
+    threads, per = thread_work(kind, A, B, kinds, spec)
     pipe = SM_CLOCKS * PIPE_LANES_PER_SM
     issue = {"fma pipe": per["fma"] * threads / pipe,
              "alu pipe": per["alu"] * threads / pipe,
@@ -311,20 +366,21 @@ def clock_now() -> str:
 # ------------------------------------------- the kernels and their plain
 
 
-def step_args(kind, A, B, gen, edge, W, start):
+def step_args(kind, A, B, gen, edge, W, start, spec=SPEC):
     """Operands of a step kernel: coefficient rows, windows x1, x2 and a
-    state of W rows with its window at ``start``. x1 is None where the step reads the state's own
-    window, as the main paths' aff1s and muladd1 (OP_AFF1S) steps do."""
+    state of W rows with its window at ``start``. x1 is None where the
+    step reads the state's own window, as the main paths' aff1s and
+    muladd1 (OP_AFF1S) steps do."""
     n_coef = {"aff2g_ip": 2, "muladd2": 2, "mulss": 0}.get(kind, 1)
     if edge:
-        x1, c = edge_rows(A, B)
-        x2, c2 = edge_rows(A, B, 3)
+        x1, c = edge_rows(A, B, 0, spec)
+        x2, c2 = edge_rows(A, B, 3, spec)
         coeffs = [c, c2][:n_coef]
     else:
-        coeffs = [rand_limbs((A,), gen) for _ in range(n_coef)]
-        x1, x2 = (rand_limbs((A, B), gen).permute(0, 2, 1).contiguous()
+        coeffs = [rand_limbs((A,), gen, spec) for _ in range(n_coef)]
+        x1, x2 = (rand_limbs((A, B), gen, spec).permute(0, 2, 1).contiguous()
                   for _ in range(2))
-    state = rand_limbs((W, B), gen).permute(0, 2, 1).contiguous()
+    state = rand_limbs((W, B), gen, spec).permute(0, 2, 1).contiguous()
     if kind in ("aff1s_ip", "muladd1"):
         if edge:  # the edge values in the window it reads
             state[start:start + A] = x1
@@ -332,7 +388,7 @@ def step_args(kind, A, B, gen, edge, W, start):
     return coeffs, state, x1, x2
 
 
-def run_step(kind, coeffs, state, x1, x2, start, plain):
+def run_step(kind, coeffs, state, x1, x2, start, plain, spec=SPEC):
     """The kernel, or its plain version, on these operands: the state
     with its window [start, start + A) written."""
     A = x2.shape[0]
@@ -340,54 +396,95 @@ def run_step(kind, coeffs, state, x1, x2, start, plain):
         x1 = state[start:start + A]
     if plain:
         if not coeffs:
-            new = step._mulss_cols(SPEC, x1, x2)
+            new = step._mulss_cols(spec, x1, x2)
         elif len(coeffs) == 2:
-            new = step._muladd2_cols(SPEC, coeffs[0].unsqueeze(-1), x1,
+            new = step._muladd2_cols(spec, coeffs[0].unsqueeze(-1), x1,
                                      coeffs[1].unsqueeze(-1), x2)
         else:
-            new = step._muladd1_cols(SPEC, coeffs[0].unsqueeze(-1), x1, x2)
+            new = step._muladd1_cols(spec, coeffs[0].unsqueeze(-1), x1, x2)
         state[start:start + A] = new
         return state
     w = WRAPPERS[kind]
     if kind.startswith("mul"):  # muladd1, muladd2, mulss
-        w(SPEC, *coeffs, x1, x2, state, start)
+        w(spec, *coeffs, x1, x2, state, start)
     elif kind == "aff1s_ip":
-        w(SPEC, coeffs[0], state, x2, start)
+        w(spec, coeffs[0], state, x2, start)
     else:
-        w(SPEC, *coeffs, state, x1, x2, start)
+        w(spec, *coeffs, state, x1, x2, start)
     return state
 
 
-def fused_args(kind, W, A, B, gen, edge, levels, start):
+def int64_step(kind, coeffs, state, x1, x2, start):
+    """The M31 step as one int64 PyTorch expression with ``%`` (the
+    yardstick beside the kernel: what PyTorch computes without it)."""
+    A = x2.shape[0]
+    win = state[start:start + A]
+    x1 = win if x1 is None else x1
+    y = x2.long()
+    if not coeffs:
+        new = x1.long() * y
+    elif len(coeffs) == 2:
+        new = coeffs[0].long()[..., None] * x1.long() \
+            + coeffs[1].long()[..., None] * y
+    else:
+        new = x1.long() + coeffs[0].long()[..., None] * y
+    win.copy_(new % M31.p)
+    return state
+
+
+def fused_args(kind, W, A, B, gen, edge, levels, start, spec=SPEC):
     """Operands of a fused kernel: a random state of W rows (its window
     [start, start + A) cycling through the edge values where ``edge``),
     and its coefficient rows (edge or random)."""
-    state = rand_limbs((W, B), gen).permute(0, 2, 1).contiguous()
+    state = rand_limbs((W, B), gen, spec).permute(0, 2, 1).contiguous()
     n = (2 if kind == "fused_bf2" else 1) if levels is None else (
         len(levels[0]) + max(sum(levels[1]), 1))
     if edge:
-        state[start:start + A] = edge_rows(A, B)[0]
-        rows = [edge_rows(A, 1, 3 + i)[1] for i in range(n)]
+        state[start:start + A] = edge_rows(A, B, 0, spec)[0]
+        rows = [edge_rows(A, 1, 3 + i, spec)[1] for i in range(n)]
     else:
-        rows = [rand_limbs((A,), gen) for _ in range(n)]
+        rows = [rand_limbs((A,), gen, spec) for _ in range(n)]
     if levels is None:
         return state, tuple(rows)
     k = len(levels[0])
     return state, (torch.stack(rows[:k]), torch.stack(rows[k:]))
 
 
-def run_fused(kind, state, rows, start, half, levels, plain):
+def run_fused(kind, state, rows, start, half, levels, plain, spec=SPEC):
     """The kernel, or its plain version, on ``state`` in place."""
     if kind == "fused_cascade":
         if plain:
-            unrolled._cascade_plain(SPEC, state, *rows, start, *levels)
+            unrolled._cascade_plain(spec, state, *rows, start, *levels)
         else:
-            unrolled.fused_cascade(SPEC, state, *rows, start, *levels)
+            unrolled.fused_cascade(spec, state, *rows, start, *levels)
     elif plain:
         awin = rows[0] if kind == "fused_bf2" else None
-        unrolled._pair_plain(SPEC, state, awin, rows[-1], start, half)
+        unrolled._pair_plain(spec, state, awin, rows[-1], start, half)
     else:
-        WRAPPERS[kind](SPEC, state, *rows, start, half)
+        WRAPPERS[kind](spec, state, *rows, start, half)
+    return state
+
+
+def int64_fused(kind, state, rows, start, half, levels):
+    """An M31 fused level (or cascade) as int64 PyTorch expressions with
+    ``%``, level by level (the yardstick beside the kernel)."""
+    if kind == "fused_cascade":
+        (cw, aw), (halves, kinds) = rows, levels
+    else:
+        cw, aw = rows[-1:], rows[:1]
+        halves, kinds = (half,), (int(kind == "fused_bf2"),)
+    A = cw.shape[1] if kind == "fused_cascade" else cw[0].shape[0]
+    win = state[start:start + A]
+    x, ai = win.long(), 0
+    for li, (h, k) in enumerate(zip(halves, kinds)):
+        part = x.index_select(0, unrolled._partner(start, A, h, x.device))
+        c = cw[li].long()[..., None]
+        if k:
+            x = (aw[ai].long()[..., None] * x + c * part) % M31.p
+            ai += 1
+        else:
+            x = (x + c * part) % M31.p
+    win.copy_(x)
     return state
 
 
@@ -405,12 +502,17 @@ def held_to_plain(kernel, plain, state, start, A):
     return err
 
 
-def kernels_against_plain(gen, sched, cascade_run):
-    """Phase 4. Returns {kind: stats}; max_abs_err is the largest over
-    every comparison of that kernel."""
+def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH):
+    """Phase 4, for the forms that take ``spec`` at its main shapes
+    (``sched``'s window, ``batch`` lanes). Returns {kind: stats};
+    max_abs_err is the largest over every comparison of that kernel; an
+    M31 form is also timed as the int64 PyTorch expression with ``%``
+    (``library_ms``)."""
     W, A, bsx = sched.W, sched.A, sched.bs_max
+    m31, nl = fd.is_m31(spec), spec.num_limbs
     res = {}
     for kind in KERNELS:
+        name = kind + "[m31]" * m31
         fused = kind.startswith("fused")
         err = 0
         # small shapes: edge and random values at B = 1 and 256
@@ -424,35 +526,39 @@ def kernels_against_plain(gen, sched, cascade_run):
                     a = 512 if half is None else 4 * half
                     s0 = 384 if half is None else 4 * half
                     st, rows = fused_args(kind, s0 + a + 128, a, B, gen,
-                                          edge, levels, s0)
+                                          edge, levels, s0, spec)
                     e = held_to_plain(
                         lambda s: run_fused(kind, s, rows, s0, half,
-                                            levels, False),
+                                            levels, False, spec),
                         lambda s: run_fused(kind, s, rows, s0, half,
-                                            levels, True), st, s0, a)
+                                            levels, True, spec), st, s0, a)
                 else:
                     a, s0 = 512, 384
-                    cf, st, x1, x2 = step_args(kind, a, B, gen, edge, 1024, s0)
+                    cf, st, x1, x2 = step_args(kind, a, B, gen, edge, 1024,
+                                               s0, spec)
                     e = held_to_plain(
-                        lambda s: run_step(kind, cf, s, x1, x2, s0, False),
-                        lambda s: run_step(kind, cf, s, x1, x2, s0, True),
-                        st, s0, a)
+                        lambda s: run_step(kind, cf, s, x1, x2, s0, False,
+                                           spec),
+                        lambda s: run_step(kind, cf, s, x1, x2, s0, True,
+                                           spec), st, s0, a)
                     if edge and B == 1:  # and the plain version vs ints
-                        plain_vs_ints(kind, cf, st, x1, x2, s0)
+                        plain_vs_ints(kind, cf, st, x1, x2, s0, spec)
                 err = max(err, e)
-                log(f"{kind} B={B} {'edge' if edge else 'random'}"
+                log(f"{name} B={B} {'edge' if edge else 'random'}"
                     f"{'' if half is None else f' half={half}'}: "
                     f"max |kernel - plain| = {e}")
         if kind == "mulss":  # one buffer as both factors: a square
             for B, edge in ((1, True), (256, False)):
-                _, st, _, x2 = step_args(kind, 512, B, gen, edge, 1024, 384)
+                _, st, _, x2 = step_args(kind, 512, B, gen, edge, 1024, 384,
+                                         spec)
                 e = held_to_plain(
-                    lambda s: run_step(kind, [], s, x2, x2, 384, False),
-                    lambda s: run_step(kind, [], s, x2, x2, 384, True),
+                    lambda s: run_step(kind, [], s, x2, x2, 384, False,
+                                       spec),
+                    lambda s: run_step(kind, [], s, x2, x2, 384, True, spec),
                     st, 384, 512)
                 err = max(err, e)
-                log(f"{kind} B={B} {'edge' if edge else 'random'}, x1 is "
-                    f"x2: max |kernel - plain| = {e}")
+                log(f"{name} B={B} {'edge' if edge else 'random'}, x1 "
+                    f"is x2: max |kernel - plain| = {e}")
         # the main paths' shapes
         if kind == "fused_cascade":
             start, halves, kinds = cascade_run
@@ -464,33 +570,40 @@ def kernels_against_plain(gen, sched, cascade_run):
             mains = [(None, None, W - A - 128)]
         for half, levels, start in mains:
             if fused:
-                st, rows = fused_args(kind, W, A, BATCH, gen, False,
-                                      levels, start)
+                st, rows = fused_args(kind, W, A, batch, gen, False,
+                                      levels, start, spec)
                 kern = (lambda s: run_fused(kind, s, rows, start, half,
-                                            levels, False))
+                                            levels, False, spec))
                 plain = (lambda s: run_fused(kind, s, rows, start, half,
-                                             levels, True))
+                                             levels, True, spec))
+                lib = (lambda s: int64_fused(kind, s, rows, start, half,
+                                             levels))
             else:
-                cf, st, x1, x2 = step_args(kind, A, BATCH, gen, False, W,
-                                           start)
+                cf, st, x1, x2 = step_args(kind, A, batch, gen, False, W,
+                                           start, spec)
                 kern = (lambda s: run_step(kind, cf, s, x1, x2, start,
-                                           False))
+                                           False, spec))
                 plain = (lambda s: run_step(kind, cf, s, x1, x2, start,
-                                            True))
+                                            True, spec))
+                lib = lambda s: int64_step(kind, cf, s, x1, x2, start)
             e = held_to_plain(kern, plain, st, start, A)
             err = max(err, e)
-            what = (f"(W={W}, A={A}, L={L}, B={BATCH}"
+            what = (f"(W={W}, A={A}, L={nl}, B={batch}"
                     + ("" if half is None else f", half={half}")
                     + ("" if levels is None else
                        f", {len(levels[0])} levels {levels}") + ")")
-            log(f"{kind} at {what}: max |kernel - plain| = {e}")
+            log(f"{name} at {what}: max |kernel - plain| = {e}")
+            if m31:  # and the int64 expression, the yardstick
+                e = held_to_plain(kern, lib, st, start, A)
+                check(e == 0, f"{name}: the int64 expression differs")
             torch.cuda.empty_cache()
             if kind not in res:  # timed at its first main shape
                 ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
                 clk = clock_now()
                 plain_ms = cuda_ms(lambda: plain(st), 3)
-                b = bound(kind, A, BATCH, levels[1] if levels else ())
-                log(f"{kind} at {what}: kernel {ms:.3f} ms (then {clk}), "
+                lib_ms = cuda_ms(lambda: lib(st), 3) if m31 else None
+                b = bound(kind, A, batch, levels[1] if levels else (), spec)
+                log(f"{name} at {what}: kernel {ms:.3f} ms (then {clk}), "
                     f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
                     f"by {b['bound_by']} (bytes {b['bytes_bound_ms']:.3f} "
                     f"ms, word products {b['ops_bound_ms']:.3f} ms); the "
@@ -498,28 +611,29 @@ def kernels_against_plain(gen, sched, cascade_run):
                     f"this design's issue bound "
                     f"{b['design_issue_bound_ms']:.3f} ms by "
                     f"{b['design_issue_by']} "
-                    f"({ms / b['design_issue_bound_ms']:.3f}x)")
+                    f"({ms / b['design_issue_bound_ms']:.3f}x)"
+                    + (f"; int64 expression {lib_ms:.3f} ms" if m31 else ""))
                 res[kind] = {"ms": ms, "plain_ms": plain_ms, **b,
-                             "library_ms": None, "shape": what}
+                             "library_ms": lib_ms, "shape": what}
             elif fused:
                 ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
-                log(f"{kind} at {what}: kernel {ms:.3f} ms (then "
+                log(f"{name} at {what}: kernel {ms:.3f} ms (then "
                     f"{clock_now()})")
             del st
             torch.cuda.empty_cache()
         if kind == "aff1s_ip":  # the D-engine's one-lane row products
-            a, b = rand_limbs((bsx,), gen), rand_limbs((bsx,), gen)
-            got = step.mul_rows(SPEC, a, b)
+            a, b = rand_limbs((bsx,), gen, spec), rand_limbs((bsx,), gen, spec)
+            got = step.mul_rows(spec, a, b)
             want = step._muladd1_cols(
-                SPEC, a.unsqueeze(-1), torch.zeros_like(a).unsqueeze(-1),
+                spec, a.unsqueeze(-1), torch.zeros_like(a).unsqueeze(-1),
                 b.unsqueeze(-1)).squeeze(-1)
             e = int((got.long() - want).abs_().max())
             err = max(err, e)
-            log(f"{kind} one-lane row products (mul_rows) at ({bsx}, "
-                f"{L}, 1): max |kernel - plain| = {e}")
-        if kind in WORD_KERNELS:
+            log(f"{name} one-lane row products (mul_rows) at ({bsx}, "
+                f"{nl}, 1): max |kernel - plain| = {e}")
+        if kind in WORD_KERNELS and not m31:
             err = max(err, word_edges(kind, gen))
-        check(err == 0, f"{kind} disagrees with its plain version")
+        check(err == 0, f"{name} disagrees with its plain version")
         res[kind]["max_abs_err"] = err
     return res
 
@@ -676,24 +790,25 @@ def pair_word_edges(kind, spec, tri, state, A, B, gen) -> int:
     return e
 
 
-def plain_vs_ints(kind, coeffs, state, x1, x2, start):
+def plain_vs_ints(kind, coeffs, state, x1, x2, start, spec=SPEC):
     """The plain version of a step against python ints on 64 rows."""
-    want = run_step(kind, coeffs, state.clone(), x1, x2, start, True)
+    p = spec.p
+    want = run_step(kind, coeffs, state.clone(), x1, x2, start, True, spec)
     want = want[start:]
-    dec = fd.decode(SPEC, want[:64, :, 0])
+    dec = fd.decode(spec, want[:64, :, 0])
     if not coeffs:  # the state x state product
-        v1, v2 = (fd.decode(SPEC, x[:64, :, 0]) for x in (x1, x2))
-        check(all(dec[q] == v1[q] * v2[q] % P for q in range(64)),
+        v1, v2 = (fd.decode(spec, x[:64, :, 0]) for x in (x1, x2))
+        check(all(dec[q] == v1[q] * v2[q] % p for q in range(64)),
               f"{kind} plain version vs ints")
         return
-    cb = fd.decode(SPEC, coeffs[-1][:64])
-    ca = fd.decode(SPEC, coeffs[0][:64])
-    xv = fd.decode(SPEC, x2[:64, :, 0])
-    sv = fd.decode(SPEC, (x1 if x1 is not None else state[start:])
+    cb = fd.decode(spec, coeffs[-1][:64])
+    ca = fd.decode(spec, coeffs[0][:64])
+    xv = fd.decode(spec, x2[:64, :, 0])
+    sv = fd.decode(spec, (x1 if x1 is not None else state[start:])
                    [:64, :, 0])
     for q in range(64):
         a = ca[q] if len(coeffs) == 2 else 1
-        check(dec[q] == (cb[q] * xv[q] + a * sv[q]) % P,
+        check(dec[q] == (cb[q] * xv[q] + a * sv[q]) % p,
               f"{kind} plain version vs ints")
 
 
@@ -739,51 +854,57 @@ def analysis_counts(sched, meta):
 # ------------------------------------------------------------ main path
 
 
+def in_range(out, spec=SPEC) -> bool:
+    """Every limb below 2^16, or every M31 value below p."""
+    top = spec.p if fd.is_m31(spec) else 1 << 16
+    return bool(((out >= 0) & (out < top)).all())
+
+
 def gate(tree, coeffs, nt_out, nt, label):
     """ENTER of the batch, then an EXIT of poly 0, each with the counts
     set to 0 just before and read just after. Returns (ENTER output,
-    ENTER counts, EXIT counts, seconds of the first ENTER)."""
+    ENTER counts, EXIT counts)."""
+    spec, (batch, n) = tree.spec, coeffs.shape[:2]
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     out = tree.enter(coeffs)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    enter_counts = read_counts()
+    enter_counts = read_counts(spec)
     check(out.shape == coeffs.shape and out.dtype == torch.int32,
           f"{label} ENTER output shape")
-    check(bool(((out >= 0) & (out < 1 << 16)).all()),
-          f"{label} ENTER output limbs out of range")
-    for bi in (0, BATCH // 2, BATCH - 1):
-        got = [int(v) for v in fd.decode(SPEC, out[bi])]
+    check(in_range(out, spec), f"{label} ENTER output limbs out of range")
+    for bi in (0, batch // 2, batch - 1):
+        got = [int(v) for v in fd.decode(spec, out[bi])]
         if bi not in nt_out:
             nt_out[bi] = nt.enter([int(v) for v in
-                                   fd.decode(SPEC, coeffs[bi])])
+                                   fd.decode(spec, coeffs[bi])])
         check(got == nt_out[bi],
               f"{label} ENTER does not match the native engine (poly {bi})")
     torch.cuda.synchronize()
     reset_counts()
     back = tree.exit(out[:1].contiguous())
     torch.cuda.synchronize()
-    exit_counts = read_counts()
+    exit_counts = read_counts(spec)
     check(torch.equal(back, coeffs[:1]),
           f"{label} EXIT does not round-trip ENTER (poly 0)")
-    log(f"{label}: first ENTER (B={BATCH}, n={N}) {first_s:.3f} s; gate "
-        f"passed: ENTER == native on polys 0, {BATCH // 2}, {BATCH - 1}; "
+    log(f"{label}: first ENTER (B={batch}, n={n}) {first_s:.3f} s; gate "
+        f"passed: ENTER == native on polys 0, {batch // 2}, {batch - 1}; "
         f"EXIT(ENTER(poly 0)) == poly 0")
     log(f"{label} launches per ENTER: {enter_counts}")
     log(f"{label} launches per EXIT: {exit_counts}")
     return out, enter_counts, exit_counts
 
 
-def timed_reps(tree, gen, label):
+def timed_reps(tree, gen, label, batch=BATCH):
     """Best of REPS warm ENTERs on fresh inputs, and the peak device
     memory over them."""
     times = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(DEV)
     for _ in range(REPS):
-        fresh = rand_limbs((BATCH, N), gen)
+        fresh = rand_limbs((batch, tree.n), gen, tree.spec)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tree.enter(fresh)
@@ -793,10 +914,10 @@ def timed_reps(tree, gen, label):
     best = min(times)
     peak = torch.cuda.max_memory_allocated(DEV)
     log(f"{label} warm ENTER reps (s): {[round(t, 4) for t in times]}")
-    log(f"{label} ENTER throughput: {BATCH / best:.3f} polys/s "
-        f"({best / BATCH * 1e3:.4f} ms/poly); peak device memory "
+    log(f"{label} ENTER throughput: {batch / best:.3f} polys/s "
+        f"({best / batch * 1e3:.4f} ms/poly); peak device memory "
         f"{peak / 1e9:.3f} GB")
-    return BATCH / best, peak
+    return batch / best, peak
 
 
 # ------------------------------------------------- the other algorithms
@@ -821,36 +942,44 @@ def native_redc(nt, evals, a, moiety):
     return native._unpack(out.raw)
 
 
-def degree_batch(tree, gen, rng):
-    """Evaluations of BATCH polynomials of known, different degrees (the
-    edge degrees first, lane BATCH − 1 the largest), and the degrees."""
-    special = [0, 1, 2, 255, 256, N // 2 - 1, N // 2, N - 2]
-    degs = [special[b] if b < len(special) else rng.randrange(N)
-            for b in range(BATCH)]
-    degs[-1] = N - 1
+def degree_batch(tree, gen, rng, batch=BATCH):
+    """Evaluations of ``batch`` polynomials of known, different degrees
+    (the edge degrees first, the last lane the largest), and the
+    degrees."""
+    n, spec = tree.n, tree.spec
+    special = [d for d in (0, 1, 2, 255, 256, n // 2 - 1, n // 2, n - 2)
+               if d < n]
+    degs = [special[b] if b < len(special) else rng.randrange(n)
+            for b in range(batch)]
+    degs[-1] = n - 1
     d = torch.tensor(degs, device=DEV)
-    coeffs = rand_limbs((BATCH, N), gen)
-    idx = torch.arange(N, device=DEV)
+    coeffs = rand_limbs((batch, n), gen, spec)
+    idx = torch.arange(n, device=DEV)
     coeffs *= (idx[None, :] <= d[:, None]).unsqueeze(-1)
-    coeffs[torch.arange(BATCH, device=DEV), d, 0] |= 1  # a leading term
+    lanes = torch.arange(batch, device=DEV)
+    lead = coeffs[lanes, d, 0]  # made nonzero: a leading term
+    coeffs[lanes, d, 0] = lead.clamp(min=1) if fd.is_m31(spec) else lead | 1
     return tree.enter(coeffs), degs
 
 
-def other_algorithms(tree, nt, gen):
-    """Phase 8. Returns (the mulss launches of all its gated calls, rows
+def other_algorithms(tree, nt, gen, batch=BATCH):
+    """Phase 8 (phase 9 for M31). Returns (the mulss launches of all its
+    gated calls, the launches of each kernel summed over its calls, rows
     for the log's table)."""
     S0, S1 = emit.S0, emit.S1
     rng = random.Random(8)
+    N, spec = tree.n, tree.spec
     h = N // 2
 
     def ints(t):
-        return [int(v) for v in fd.decode(SPEC, t)]
+        return [int(v) for v in fd.decode(spec, t)]
 
     a_can, c_can = nt.table(N, "xnn_s"), nt.table(N, "z0z0_rem_xnn_s")
-    ga, gc = rand_limbs((N,), gen), rand_limbs((N,), gen)
-    ga[:, 0] |= 1  # no zero entry to invert
+    ga, gc = rand_limbs((N,), gen, spec), rand_limbs((N,), gen, spec)
+    # no zero entry to invert
+    ga = ga.clamp(min=1) if fd.is_m31(spec) else ga | 1
     gai, gci = ints(ga), ints(gc)
-    ev, degs = degree_batch(tree, gen, rng)
+    ev, degs = degree_batch(tree, gen, rng, batch)
     # name, method, its arguments after the batch, the schedule's key, the
     # batch (an int: a fresh random one of that many points), the engine
     algs = [
@@ -875,12 +1004,12 @@ def other_algorithms(tree, nt, gen):
         ("MOD, general modulus", "modular_reduce", (ga, gc), ("gmod", N),
          N, lambda x: nt.modular_reduce(x, gai, gci)),
     ]
-    mulss_launches, rows = 0, []
-    for name, method, args, key, batch, engine in algs:
-        x = rand_limbs((BATCH, batch), gen) if isinstance(batch, int) \
-            else batch
+    totals, rows = collections.Counter(), []
+    for name, method, args, key, size, engine in algs:
+        x = rand_limbs((batch, size), gen, spec) if isinstance(size, int) \
+            else size
         m = x.shape[1]
-        want = {b: engine(ints(x[b])) for b in (0, BATCH - 1)}
+        want = {b: engine(ints(x[b])) for b in (0, batch - 1)}
         outs = {}
         for ex in ("scan", "unrolled"):
             os.environ.pop("ECFFT_EXECUTOR", None)
@@ -896,7 +1025,7 @@ def other_algorithms(tree, nt, gen):
             reset_counts()
             out = run()
             torch.cuda.synchronize()
-            counts = read_counts()
+            counts = read_counts(spec)
             for b, w in want.items():
                 got = int(out[b]) if method == "degree" else ints(out[b])
                 check(got == w, f"{name} ({ex}) does not match the native "
@@ -904,23 +1033,11 @@ def other_algorithms(tree, nt, gen):
             if method == "degree":
                 check(out.tolist() == degs, f"{name} ({ex}): the degrees")
             else:
-                check(bool(((out >= 0) & (out < 1 << 16)).all()),
+                check(in_range(out, spec),
                       f"{name} ({ex}) output limbs out of range")
-            if ex == "scan":
-                pred = scan_counts(sched)
-                check(all(counts[k] == v for k, v in pred.items()
-                          if k != "aff1s_ip")
-                      and counts["aff1s_ip"] >= pred["aff1s_ip"],
-                      f"{name} (scan) launches {counts} against the "
-                      f"schedule's steps {pred}")
-            else:
-                pred, _ = analysis_counts(sched, meta)
-                check(all(counts[k] == pred[k] for k in (
-                    "muladd1", "muladd2", "fused_bf1", "fused_bf2",
-                    "fused_cascade", "mulss")),
-                      f"{name} (unrolled) launches {counts} against the "
-                      f"analysis {dict(pred)}")
-            mulss_launches += counts["mulss"]
+            check_counts(f"{name} ({ex})", counts, sched,
+                         meta if ex == "unrolled" else None)
+            totals.update(counts)
             times = []
             for _ in range(2):
                 torch.cuda.synchronize()
@@ -932,17 +1049,17 @@ def other_algorithms(tree, nt, gen):
             launched = {k: v for k, v in counts.items() if v}
             n_cmp = int((sched.xs[0] == emit.OP_CMPSEL).sum())
             cmpsel = f", {n_cmp} cmpsel steps in plain PyTorch" * bool(n_cmp)
-            log(f"{name} ({ex}), {m} points, B={BATCH}: W={sched.W} "
+            log(f"{name} ({ex}), {m} points, B={batch}: W={sched.W} "
                 f"A={sched.A} steps={len(sched.xs[0])}; schedule"
                 f"{' and analysis' if ex == 'unrolled' else ''} "
                 f"{setup_s:.3f} s; gate passed (== native on lanes 0, "
-                f"{BATCH - 1}); launches {launched} = {sum(counts.values())}"
+                f"{batch - 1}); launches {launched} = {sum(counts.values())}"
                 f"{cmpsel}"
                 f"; warm reps (s) {[round(t, 4) for t in times]}: "
-                f"{BATCH / best:.3f} polys/s")
+                f"{batch / best:.3f} polys/s")
             rows.append((name, ex, m, len(sched.xs[0]),
                          sum(counts.values()), counts["mulss"],
-                         BATCH / best))
+                         batch / best))
             outs[ex] = out
             del out
         check(torch.equal(outs["scan"], outs["unrolled"]),
@@ -950,11 +1067,73 @@ def other_algorithms(tree, nt, gen):
         del outs, x
         torch.cuda.empty_cache()
     os.environ.pop("ECFFT_EXECUTOR", None)
-    return mulss_launches, rows
+    return totals, rows
+
+
+def check_counts(what, counts, sched, meta):
+    """A call's launches against its schedule's steps (scan executor,
+    ``meta`` None) or the fusion analysis (unrolled)."""
+    if meta is None:
+        pred = scan_counts(sched)
+        check(all(counts[k] == v for k, v in pred.items()
+                  if k != "aff1s_ip")
+              and counts["aff1s_ip"] >= pred["aff1s_ip"],
+              f"{what} launches {counts} against the schedule's steps "
+              f"{pred}")
+    else:
+        pred, _ = analysis_counts(sched, meta)
+        check(all(counts[k] == pred[k] for k in (
+            "muladd1", "muladd2", "fused_bf1", "fused_bf2",
+            "fused_cascade", "mulss")),
+              f"{what} launches {counts} against the analysis {dict(pred)}")
+
+
+def print_table(rows, batch):
+    log("algorithm | executor | points | steps | launches (mulss) | "
+        f"polys/s at B={batch}")
+    for alg, ex, m, steps, launches, mul, tput in rows:
+        log(f"{alg} | {ex} | {m} | {steps} | {launches} ({mul}) | "
+            f"{tput:.3f}")
+
+
+def m31_path(tree, nt, gen):
+    """Phase 9: M31 at n = 2^16, B = 2048 through all eight algorithms on
+    both executors, on the tree of phase 3b. Returns the M31 forms'
+    launches over its gated calls."""
+    totals = collections.Counter()
+    with Phase("9a M31: ENTER and its EXIT round trip on both executors"):
+        coeffs = rand_limbs((M31_BATCH, M31_N), gen, M31)
+        nt_out, outs = {}, {}
+        for ex in ("scan", "unrolled"):
+            os.environ.pop("ECFFT_EXECUTOR", None)
+            if ex == "unrolled":
+                os.environ["ECFFT_EXECUTOR"] = "unrolled"
+            outs[ex], enter, exit_ = gate(tree, coeffs, nt_out, nt,
+                                          f"M31 {ex}")
+            for alg, got in (("enter", enter), ("exit", exit_)):
+                sched, _, meta = tree._schedule(alg, M31_N)
+                check_counts(f"M31 {alg} ({ex})", got, sched,
+                             meta if ex == "unrolled" else None)
+            totals.update(enter)
+            totals.update(exit_)
+            timed_reps(tree, gen, f"M31 {ex}", M31_BATCH)
+        check(torch.equal(outs["scan"], outs["unrolled"]),
+              "M31: the unrolled ENTER differs from the scan ENTER")
+        os.environ.pop("ECFFT_EXECUTOR", None)
+        del outs, coeffs
+        torch.cuda.empty_cache()
+    with Phase("9b M31: the six other algorithms, each on both executors"):
+        other, rows = other_algorithms(tree, nt, gen, M31_BATCH)
+        totals.update(other)
+        print_table(rows, M31_BATCH)
+    check(all(totals[k] > 0 for k in KERNELS),
+          f"an M31 form was not launched on the M31 path: {dict(totals)}")
+    log(f"M31 launches over phase 9: {dict(totals)}")
+    return totals
 
 
 def main() -> int:
-    global SASS, SM_CLOCKS
+    global SASS, M31_SASS, SM_CLOCKS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -997,26 +1176,29 @@ def main() -> int:
         t0 = time.perf_counter()
         native_library()
         log(f"native engine built in {time.perf_counter() - t0:.3f} s")
-        SASS = kernel_sass(lib._name)
-        for k in KERNELS:
-            if k != "fused_cascade":
-                per = sass_count.thread_counts(SASS[k], FOLD_ROUNDS,
-                                               fold_nonzero(k))
-                log(f"{k}: one thread issues {per}")
+        SASS, M31_SASS = kernel_sass(lib._name)
+        for spec, sass in ((SPEC, SASS), (M31, M31_SASS)):
+            tag = "[m31]" * fd.is_m31(spec)
+            for k in KERNELS:
+                if k != "fused_cascade":
+                    per = sass_count.thread_counts(sass[k], FOLD_ROUNDS,
+                                                   fold_nonzero(k, spec))
+                    log(f"{k}{tag}: one thread issues {per}")
+            nz = fold_nonzero("fused_cascade", spec)
+            base = sass_count.thread_counts(sass["fused_cascade"],
+                                            FOLD_ROUNDS, nz)
+            for kind in (0, 1):
+                one = sass_count.thread_counts(sass["fused_cascade"],
+                                               FOLD_ROUNDS, nz, [kind])
+                log(f"fused_cascade{tag}: one thread issues {base} outside "
+                    f"the levels, and per level of kind {kind} "
+                    f"{ {x: one[x] - base[x] for x in one} }")
         for line in kernel_resources(lib._name):
             log(line)
         for k in ("fused_bf1", "fused_bf2"):
             ahead, loads = sass_count.loads_before_first_product(SASS[k])
             log(f"{k}: {ahead} of its {loads} device loads stand ahead of "
                 f"the first IMAD.WIDE.U32")
-        nz = fold_nonzero("fused_cascade")
-        base = sass_count.thread_counts(SASS["fused_cascade"], FOLD_ROUNDS, nz)
-        for kind in (0, 1):
-            one = sass_count.thread_counts(SASS["fused_cascade"],
-                                           FOLD_ROUNDS, nz, [kind])
-            log(f"fused_cascade: one thread issues {base} outside the "
-                f"levels, and per level of kind {kind} "
-                f"{ {x: one[x] - base[x] for x in one} }")
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
@@ -1042,9 +1224,26 @@ def main() -> int:
         log(f"pool rows={tree._pool.shape[0]}; ENTER's longest in-tile run: "
             f"start {cascade_run[0]}, halves {cascade_run[1]}, kinds "
             f"{cascade_run[2]}")
+    with Phase("3b M31: tree, pool, schedules and the unrolled analysis"):
+        t0 = time.perf_counter()
+        tree31 = build_fftree_native("m31", M31_N, device=DEV).prepare()
+        log(f"M31 tree, pool ({tree31._pool.shape[0]} rows) and schedules: "
+            f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        os.environ["ECFFT_EXECUTOR"] = "unrolled"
+        tree31.prepare()
+        os.environ.pop("ECFFT_EXECUTOR")
+        log(f"M31 unrolled analysis: {time.perf_counter() - t0:.3f} s")
+        sched31, _, meta31 = tree31._schedule("enter", M31_N)
+        run31 = max(analysis_counts(sched31, meta31)[1],
+                    key=lambda r: len(r[1]))
+        nt31 = NativeFFTree("m31", M31_N)
 
     with Phase("4 kernels against their plain versions"):
         kstats = kernels_against_plain(gen, sched, cascade_run)
+    with Phase("4b the M31 forms against their plain versions"):
+        m31_stats = kernels_against_plain(gen, sched31, run31, M31,
+                                          M31_BATCH)
 
     with Phase("5 native single-core ENTER baseline"):
         nt = NativeFFTree(FIELD, N)
@@ -1109,14 +1308,14 @@ def main() -> int:
     os.environ.pop("ECFFT_EXECUTOR")
 
     with Phase("8 the six other algorithms, each on both executors"):
-        mulss_launches, rows = other_algorithms(tree, nt, gen)
-        check(mulss_launches > 0, "mulss was not launched")
-        log("algorithm | executor | points | steps | launches (mulss) | "
-            f"polys/s at B={BATCH}")
-        for alg, ex, m, steps, launches, mul, tput in rows:
-            log(f"{alg} | {ex} | {m} | {steps} | {launches} ({mul}) | "
-                f"{tput:.3f}")
-    scan_launches["mulss"] = un_launches["mulss"] = mulss_launches
+        totals, rows = other_algorithms(tree, nt, gen)
+        check(totals["mulss"] > 0, "mulss was not launched")
+        print_table(rows, BATCH)
+    scan_launches["mulss"] = un_launches["mulss"] = totals["mulss"]
+    del tree, nt
+    torch.cuda.empty_cache()
+
+    m31_launches = m31_path(tree31, nt31, gen)
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
@@ -1124,6 +1323,10 @@ def main() -> int:
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         **kstats[k]})
+    for k, (_, replaces) in KERNELS.items():
+        kernels.append({"name": f"{k}[m31]", "route": "cuda",
+                        "source": M31_SRC, "replaces": replaces,
+                        "launches": m31_launches[k], **m31_stats[k]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -70,6 +70,7 @@
 
 #include <cuda_runtime.h>
 
+#include "levels.cuh"
 #include "word_arith.cuh"
 
 constexpr int BF_THREADS = 128;           // pair-level threads: one an element
@@ -78,16 +79,6 @@ constexpr int CL = 4;                      // lanes per cascade block
 constexpr int MAX_TW = 128;                // largest cascade tile
 constexpr int CT = MAX_TW * CL;            // cascade threads: one an element
 constexpr int RS = NW * CL + CL;           // shared words per tile row
-constexpr int MAX_LEVELS = 16;             // cascade levels per launch
-
-// A cascade's levels, passed by value (the layout of unrolled.py's
-// _Levels): the xor distance of each level and its form (0: 1-mul, 1:
-// 2-mul reading the next row of the A coefficients).
-struct Levels {
-  int k;
-  int half[MAX_LEVELS];
-  int kind[MAX_LEVELS];
-};
 
 namespace {
 

@@ -2,17 +2,20 @@
 
 The port's counterpart of ``ecfft_tpu/fftree.py``: ENTER (coefficients →
 evaluations), EXIT (evaluations → coefficients), EXTEND, MEXTEND, DEGREE,
-REDC, MOD and VANISH on the schedule machine, over fold-friendly
-16-bit-limb fields such as secp256k1. The methods carry the JAX package's
-names and arguments; its ``*_unscheduled`` cross-validation forms are not
-ported.
+REDC, MOD and VANISH on the schedule machine, over M31 and fold-friendly
+16-bit-limb fields such as secp256k1 (on the card: M31 and 16-limb
+primes, see ``ops.step.kernel_form``). The methods carry the JAX
+package's names and arguments; its ``*_unscheduled`` cross-validation
+forms are not ported.
 
 The tables (``{m: {name: (rows, L) int32, "mats": [...]}}``, the JAX
 package's layout) stay on the CPU: they feed only the coefficient pool,
 which is built there once (:meth:`FFTree.prepare`) and then moved to the
 tree's device with the schedules' residual banks. Batches are (..., n, L)
-int32 tensors of 16-bit limbs on that device: the card (``"cuda"``)
-unless the caller names another. Constructing a tree touches no device.
+int32 tensors on that device (L = 16 limbs of 16 bits, or M31's one
+32-bit limb): the card (``"cuda"``) unless the caller names another.
+Constructing a tree touches no device; for the card it refuses a field
+that no kernel takes.
 
 ``ECFFT_EXECUTOR=unrolled`` runs the transforms on the unrolled executor
 (``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
@@ -30,7 +33,7 @@ from ecfft_tpu_torch.errors import SizeError
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec, get_spec
 from ecfft_tpu_torch.native import build_tables_native
-from ecfft_tpu_torch.ops import emit
+from ecfft_tpu_torch.ops import emit, step
 from ecfft_tpu_torch.ops.schedule import (build_pool, run_schedule,
                                           unrolled_selected)
 from ecfft_tpu_torch.ops.emit import S0, S1
@@ -63,10 +66,10 @@ class FFTree:
     def __init__(self, spec: str | FieldSpec, n: int, tables: dict,
                  device="cuda"):
         self.spec = get_spec(spec)
-        fd.check_fold(self.spec)
+        self.device = torch.device(device)
+        _check_field(self.spec, self.device)
         self.n = n
         self.tables = tables
-        self.device = torch.device(device)
         self._pool = None
         self._pool_off = None
         self._scheds: dict = {}
@@ -85,21 +88,31 @@ class FFTree:
         if m > self.n:
             raise SizeError("FFTree is too small")
 
+    def eval_domain(self, size: int | None = None) -> np.ndarray:
+        """Leaf domain of the size-``size`` (sub)tree, as python ints
+        (fftree.rs:502-504)."""
+        size = size or self.n
+        return fd.decode(self.spec, self.tables[size]["leaves"])
+
     @property
     def pool_offsets(self) -> dict:
-        self.prepare(())
+        self._ensure_pool()
         return self._pool_off
 
-    def prepare(self, sizes: tuple | None = None) -> "FFTree":
+    def _ensure_pool(self) -> None:
         """Build the coefficient pool (on the CPU, then moved to the
-        device) and the ENTER/EXIT schedules for ``sizes`` (default: n;
-        the other algorithms' schedules are made at first use),
-        with the unrolled executor's analysis where it is selected, ahead
-        of the first transform."""
+        device) once."""
         if self._pool is None:
             pool, self._pool_off = build_pool(self.spec, self.tables)
             self._pool = pool.to(self.device)
-        for m in (self.n,) if sizes is None else sizes:
+
+    def prepare(self, sizes: tuple | None = None) -> "FFTree":
+        """Build the coefficient pool and the ENTER/EXIT schedules for
+        ``sizes`` (default, or empty: n; the other algorithms' schedules
+        are made at first use), with the unrolled executor's analysis
+        where it is selected, ahead of the first transform."""
+        self._ensure_pool()
+        for m in sizes or (self.n,):
             for alg in ("enter", "exit"):
                 self._schedule(alg, m)
         return self
@@ -111,7 +124,7 @@ class FFTree:
         keys: ("enter", m), ("extend", m, moiety), ("gredc", m, moiety)."""
         key = (alg, m) if moiety is None else (alg, m, moiety)
         if key not in self._scheds:
-            self.prepare(())
+            self._ensure_pool()
             s = _EMITTERS[alg](self._pool_off, self.spec.p, m, moiety)
             bank = torch.from_numpy(s.xs[5]).to(self.device, torch.int64)
             self._scheds[key] = [s, bank, None]
@@ -175,15 +188,18 @@ class FFTree:
         """Degree of the interpolant, one int32 per batch entry, on the
         tree's device (fftree.rs:195-198). OP_CMPSEL steps take the
         reference's data-dependent branch per batch lane; the accumulator
-        rides the state as a field element and its first two limbs are
-        decoded here."""
+        rides the state as a field element and its first limbs (two, or
+        M31's one) are decoded here."""
         n = evals.shape[-2]
         if n == 1:
             self._size_check(n)
             return torch.zeros(evals.shape[:-2], dtype=torch.int32,
                                device=self.device)
         acc = self._run_sched("degree", evals, 1, n + 2)[..., 0, :]
-        return acc[..., 0] | acc[..., 1] << self.spec.limb_bits
+        val = acc[..., 0]
+        if acc.shape[-1] > 1:
+            val = val | acc[..., 1] << self.spec.limb_bits
+        return val
 
     def redc_z0(self, evals, a=None) -> torch.Tensor:
         """⟨P·Z₀⁻¹ mod a ≀ S⟩ (fftree.rs:264-267). With ``a=None`` the
@@ -231,13 +247,26 @@ class FFTree:
         return self._run_sched("vanish", points, 2 * v, 4 * v, tree=2)
 
 
+def _check_field(spec: FieldSpec, device: torch.device) -> None:
+    """Refuse a field the port cannot compute in: on any device one the
+    plain arithmetic lacks, on the card also one that no kernel takes."""
+    fd.check_fold(spec)
+    if device.type == "cuda":
+        step.kernel_form(spec)
+
+
 def build_fftree_native(field: str | FieldSpec, n: int,
                         device="cuda") -> FFTree | None:
     """A size-``n`` FFTree whose tables the native engine builds; None
     when n exceeds the field's curve two-adicity."""
     spec = get_spec(field)
-    fd.check_fold(spec)
+    _check_field(spec, torch.device(device))
     tables = build_tables_native(spec, n)
     if tables is None:
         return None
     return FFTree(spec, n, tables_from_numpy(tables), device)
+
+
+# the JAX package's ``build_fftree``: the port has no device bootstrap, so
+# the native engine builds the tables
+build_fftree = build_fftree_native

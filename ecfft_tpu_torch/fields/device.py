@@ -4,11 +4,12 @@ The port's counterpart of ``ecfft_tpu/fields/device.py``, cut to what the
 pool build, the step functions' plain versions and the tests need.
 
 Layout: a field element is L limbs of 16 bits (``spec.limb_bits``), the
-same bits as the JAX package's uint32 limbs. PyTorch has little uint32
-support (no add, shift or compare on the CPU), so resident tensors are
-**int32** (a 16-bit limb fits) and the plain
-arithmetic here computes in **int64**, where every column sum of the
-schoolbook product is exact.
+same bits as the JAX package's uint32 limbs; M31 (p = 2^31 − 1) packs its
+element into one 32-bit limb. PyTorch has little uint32 support (no add,
+shift or compare on the CPU), so resident tensors are **int32** (a 16-bit
+limb, or a canonical M31 value, fits) and the plain arithmetic here
+computes in **int64**, where every column sum of the schoolbook product,
+and every product of two M31 values, is exact.
 
 The column functions mirror the XLA step pipeline of
 ``ecfft_tpu/ops/schedule.py`` (``_conv_cols`` → ``_fold_cols`` →
@@ -22,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecfft_tpu_torch.fields.registry import LIMB_MASK, FieldSpec
+from ecfft_tpu_torch.fields.registry import LIMB_MASK, M31_P, FieldSpec
 
 
 def encode(spec: FieldSpec, values, device=None) -> torch.Tensor:
@@ -59,6 +60,50 @@ def decode(spec: FieldSpec, limbs) -> np.ndarray:
 
 def ones(spec: FieldSpec, shape=(), device=None) -> torch.Tensor:
     return encode(spec, 1, device).expand(*shape, spec.num_limbs)
+
+
+# ------------------------------------------------------- M31, in int64
+
+
+def is_m31(spec: FieldSpec) -> bool:
+    return spec.num_limbs == 1 and spec.p == M31_P
+
+
+def _m31_canon(x):
+    """int64 values below 2^63 → canonical residues mod 2^31 − 1: fold
+    twice (x ≡ (x mod 2^31) + (x >> 31)), then subtract p once."""
+    x = (x & M31_P) + (x >> 31)
+    x = (x & M31_P) + (x >> 31)
+    return torch.where(x >= M31_P, x - M31_P, x)
+
+
+def _m31_add(a, b):
+    s = a.long() + b.long()  # < 2p
+    return torch.where(s >= M31_P, s - M31_P, s)
+
+
+def _m31_sub(a, b):
+    a, b = a.long(), b.long()
+    return torch.where(a >= b, a - b, a + (M31_P - b))
+
+
+def _m31_mul(a, b):
+    """The product of two canonical values (< 2^62, exact in int64),
+    reduced: the same residue, so the same bits, as the JAX package's
+    16-bit-split product."""
+    return _m31_canon(a.long() * b.long())
+
+
+def _m31_pow(a, e: int):
+    """a^e elementwise by square-and-multiply on int64 tensors."""
+    a = a.long()
+    r = torch.ones_like(a)
+    while e:
+        if e & 1:
+            r = _m31_mul(r, a)
+        a = _m31_mul(a, a)
+        e >>= 1
+    return r
 
 
 # ------------------------------------------------ int64 column pipeline
@@ -131,12 +176,16 @@ def _reduce_cols(spec: FieldSpec, c):
 
 
 def check_fold(spec: FieldSpec) -> None:
-    """Raise NotImplementedError for a field the port cannot reduce yet."""
+    """Raise NotImplementedError for a field the port cannot reduce yet:
+    M31 and the fold-friendly 16-bit-limb primes are covered."""
+    if is_m31(spec):
+        return
     if spec.num_limbs == 1 or spec.fold_terms is None:
         raise NotImplementedError(
-            f"{spec.name}: the port's limb arithmetic covers fold-friendly "
-            "16-bit-limb primes only; the CIOS Montgomery branch and the "
-            "M31 (L=1) step are still to be ported (ROADMAP.md, Queue 2)")
+            f"{spec.name}: the port's arithmetic covers M31 and "
+            "fold-friendly 16-bit-limb primes; a prime without a "
+            "pseudo-Mersenne fold needs the CIOS Montgomery branch, still "
+            "to be ported (ROADMAP.md, Queue 2)")
 
 
 # --------------------------------------------------------- field ops
@@ -145,13 +194,16 @@ def check_fold(spec: FieldSpec) -> None:
 def mul(spec: FieldSpec, a, b) -> torch.Tensor:
     """Elementwise field product of (..., L) int32 tensors."""
     check_fold(spec)
+    if is_m31(spec):
+        return _m31_mul(a, b).int()
     c = _conv_cols(spec, a.unsqueeze(-1), b.unsqueeze(-1))
     return _reduce_cols(spec, c)[..., 0].int()
 
 
 def neg(spec: FieldSpec, a) -> torch.Tensor:
-    """−a mod p for (..., L) int32 tensors of 16-bit limbs (zero stays
-    zero)."""
+    """−a mod p for (..., L) int32 tensors (zero stays zero)."""
+    if is_m31(spec):
+        return _m31_sub(torch.zeros_like(a), a).int()
     p = torch.tensor(spec.to_limbs(spec.p), dtype=torch.int64,
                      device=a.device)
     d = p - a.long()  # limbwise; a signed ripple restores 16-bit limbs
@@ -164,3 +216,14 @@ def neg(spec: FieldSpec, a) -> torch.Tensor:
     out = torch.stack(out, dim=-1)
     zero = (a == 0).all(dim=-1, keepdim=True)
     return torch.where(zero, torch.zeros_like(out), out).int()
+
+
+def inv(spec: FieldSpec, a) -> torch.Tensor:
+    """Elementwise inverse of M31 (..., 1) int32 values by Fermat, a^(p−2)
+    (zero maps to zero, as in the JAX package's ``inv``). The 16-bit-limb
+    fields invert through the native engine (``native.batch_inv_limbs``)."""
+    if not is_m31(spec):
+        raise NotImplementedError(
+            f"{spec.name}: inv takes M31; invert 16-bit limbs with "
+            "native.batch_inv_limbs")
+    return _m31_pow(a, M31_P - 2).int()

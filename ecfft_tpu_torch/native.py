@@ -158,6 +158,9 @@ class NativeFFTree:
         lib().ecn_table(self._h, size, TABLE_IDS[name], out)
         return _unpack(out.raw)
 
+    def eval_domain(self, size: int | None = None) -> list[int]:
+        return self.table(size or self.n, "leaves")
+
     def mats(self, size: int, depth: int, which: int) -> list[int]:
         cnt = lib().ecn_mats(self._h, size, depth, which, None)
         out = ctypes.create_string_buffer(32 * 4 * cnt)

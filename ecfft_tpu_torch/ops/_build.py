@@ -3,9 +3,10 @@
 Two libraries, each with a plain C interface opened through ctypes:
 
 - the kernels, from ``csrc/step_kernels.cu`` (which includes
-  ``csrc/field_arith.cuh`` and ``csrc/word_arith.cuh``) and
-  ``csrc/fused_kernels.cu`` (``csrc/word_arith.cuh``), for Hopper
-  (``sm_90a``),
+  ``csrc/field_arith.cuh`` and ``csrc/word_arith.cuh``),
+  ``csrc/fused_kernels.cu`` (``csrc/levels.cuh``, ``csrc/word_arith.cuh``)
+  and ``csrc/m31_kernels.cu`` (``csrc/levels.cuh``,
+  ``csrc/m31_arith.cuh``), for Hopper (``sm_90a``),
   with ``torch.utils.cpp_extension.load`` (one call, all sources, which
   tracks the header through nvcc's dependency files) where ``ninja`` is
   installed, else with ``nvcc`` directly. The sources include no PyTorch
@@ -30,9 +31,11 @@ import tempfile
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNEL_SOURCES = [os.path.join(_PKG, "csrc", f)
-                  for f in ("step_kernels.cu", "fused_kernels.cu")]
+                  for f in ("step_kernels.cu", "fused_kernels.cu",
+                            "m31_kernels.cu")]
 KERNEL_HEADERS = [os.path.join(_PKG, "csrc", f)
-                  for f in ("field_arith.cuh", "word_arith.cuh")]
+                  for f in ("field_arith.cuh", "word_arith.cuh",
+                            "m31_arith.cuh", "levels.cuh")]
 NATIVE_SOURCE = os.path.join(os.path.dirname(_PKG), "native",
                              "ecfft_native.cpp")
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"

@@ -77,7 +77,10 @@ def build_pool(spec: FieldSpec, tables: dict) -> tuple[torch.Tensor, dict]:
     vectors, then the negated 2-leaf domain.
 
     Sets ``offsets["unscaled"] = True`` when a Lemma-3.2 diagonal entry
-    is zero (the emitters then use exact 2-mul butterflies)."""
+    is zero (the emitters then use exact 2-mul butterflies). The
+    diagonals' inverses come from the native engine (16-bit limbs) or, for
+    M31, from Fermat's a^(p−2) in int64 (``fields.device.inv``); inverses
+    are unique, so either equals the JAX package's product-scan inverse."""
     sizes = tuple(sorted(tables))
     meta = _plane_meta(sizes)
     off = {}
@@ -107,6 +110,8 @@ def build_pool(spec: FieldSpec, tables: dict) -> tuple[torch.Tensor, dict]:
         if bool((diags == 0).all(dim=-1).any()):
             off["unscaled"] = True
             msi = torch.zeros_like(diags)
+        elif fd.is_m31(spec):  # the native inversion takes 16-bit limbs
+            msi = fd.inv(spec, diags)
         else:
             msi = torch.from_numpy(batch_inv_limbs(
                 spec, diags.cpu().numpy()).astype(np.int32)).to(dev)

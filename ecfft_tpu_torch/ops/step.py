@@ -24,12 +24,17 @@ windows, and it reads no coefficient row:
 
 - :func:`mulss`: out[s+q] ← x1[q]·x2[q]
 
-A CUDA tensor goes to the hand-written kernel in ``csrc/step_kernels.cu``
-(built at first use by ``ops/_build.py``), or the wrapper raises: there
-is no fallback. A CPU tensor goes to the plain PyTorch version beside it
-(:func:`_muladd1_cols`, :func:`_muladd2_cols`), which mirrors the JAX
-package's XLA step in int64. Each wrapper counts its kernel launches in
-its ``launches`` attribute; the plain path does not count.
+A CUDA tensor goes to the hand-written kernel (built at first use by
+``ops/_build.py``), or the wrapper raises: there is no fallback. Two
+forms of each kernel: ``csrc/step_kernels.cu`` for fold-friendly primes
+of 16 limbs of 16 bits (secp256k1), ``csrc/m31_kernels.cu`` for M31, one
+32-bit word an element; :func:`kernel_form` picks one by the field and
+refuses any other, naming the cause. A CPU tensor goes to the plain
+PyTorch version beside it (:func:`_muladd1_cols`, :func:`_muladd2_cols`,
+:func:`_mulss_cols`), which mirrors the JAX package's XLA step in int64.
+Each wrapper counts its kernel launches, the 16-limb form's in its
+``launches`` attribute and the M31 form's in ``m31_launches``; the plain
+path does not count.
 
 For the in-place steps x1 and x2 must be buffers of their own, never
 views of the state: the in-place write is race-free only because every
@@ -60,7 +65,9 @@ def _muladd1_cols(spec: FieldSpec, C, x1, x2):
     """x1 + C·x2 in the (W, L, B) layout, in int64 (C: (W, L, 1)). As the
     JAX step does, x1 joins the product columns before the reduction (it
     is smaller than a second product, so the two-product bounds cover
-    it)."""
+    it); M31 adds it to the reduced product."""
+    if fd.is_m31(spec):
+        return fd._m31_add(x1, fd._m31_mul(C, x2))
     c = fd._conv_cols(spec, C, x2)
     c[..., :spec.num_limbs, :] += x1.long()
     return fd._reduce_cols(spec, c)
@@ -68,6 +75,8 @@ def _muladd1_cols(spec: FieldSpec, C, x1, x2):
 
 def _muladd2_cols(spec: FieldSpec, A, x1, B, x2):
     """A·x1 + B·x2 in the (W, L, B) layout, in int64 (A, B: (W, L, 1))."""
+    if fd.is_m31(spec):
+        return fd._m31_add(fd._m31_mul(A, x1), fd._m31_mul(B, x2))
     c = fd._conv_cols(spec, A, x1) + fd._conv_cols(spec, B, x2)
     return fd._reduce_cols(spec, c)
 
@@ -75,6 +84,8 @@ def _muladd2_cols(spec: FieldSpec, A, x1, B, x2):
 def _mulss_cols(spec: FieldSpec, x1, x2):
     """x1·x2 elementwise in the (W, L, B) layout, in int64: the column
     pipeline of ``fields.device.mul`` with both factors batched."""
+    if fd.is_m31(spec):
+        return fd._m31_mul(x1, x2)
     return fd._reduce_cols(spec, fd._conv_cols(spec, x1, x2))
 
 
@@ -106,6 +117,10 @@ def load_kernels() -> ctypes.CDLL:
             fn = getattr(so, name)
             fn.restype = i32
             fn.argtypes = [ptr] + [ptr] * n_ptrs + [i32] * n_ints + [ptr]
+            # the M31 form: the same arguments without the field constants
+            fn = getattr(so, _m31_name(name))
+            fn.restype = i32
+            fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
         so.ecfft_error_string.restype = ctypes.c_char_p
         so.ecfft_error_string.argtypes = [i32]
         _lib = so
@@ -121,19 +136,49 @@ class _Field(ctypes.Structure):
                 ("fw", ctypes.c_uint32 * KERNEL_WORDS)]
 
 
+def _m31_name(name: str) -> str:
+    """The M31 form's entry point: ecfft_aff1s_ip → ecfft_m31_aff1s_ip."""
+    return "ecfft_m31_" + name[len("ecfft_"):]
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_form(spec: FieldSpec) -> str:
+    """Which form of the kernels takes ``spec``: "m31" (one 32-bit word an
+    element) or "limbs16" (16 limbs of 16 bits with a pseudo-Mersenne
+    fold whose digits sum below 2^10). Raises NotImplementedError naming
+    each cause for any other field: a fold-friendly prime of another limb
+    count still runs on the CPU (:func:`fields.device.check_fold` takes
+    it), never on the card."""
+    if fd.is_m31(spec):
+        return "m31"
+    causes = []
+    if spec.fold_terms is None:
+        causes.append("it has no pseudo-Mersenne fold and needs the CIOS "
+                      "Montgomery branch")
+    elif sum(d for _, d in spec.fold_terms) >= 1 << 10:
+        causes.append("its fold digits sum to 2^10 or more and need the "
+                      "CIOS Montgomery branch or a wider fold")
+    if spec.num_limbs != KERNEL_LIMBS or spec.limb_bits != 16:
+        causes.append(f"it has {spec.num_limbs} limbs of {spec.limb_bits} "
+                      f"bits, and the kernels are compiled for "
+                      f"{KERNEL_LIMBS} limbs of 16 bits (or M31's one "
+                      "32-bit word)")
+    if causes:
+        raise NotImplementedError(
+            f"{spec.name}: no CUDA kernel takes this field yet: "
+            + "; ".join(causes) + " (ROADMAP.md, Queue 2)")
+    return "limbs16"
+
+
 @functools.lru_cache(maxsize=None)
 def _field(spec: FieldSpec) -> _Field:
-    """The kernels' field constants: p's limbs, the limbs of the fold
-    multiplier F = 2^(16L) mod p, the slack 16L − bitlen(p), and p and F
-    in 32-bit words."""
+    """The 16-limb kernels' field constants: p's limbs, the limbs of the
+    fold multiplier F = 2^(16L) mod p, the slack 16L − bitlen(p), and p
+    and F in 32-bit words."""
+    if kernel_form(spec) != "limbs16":
+        raise ValueError(f"{spec.name}: the M31 kernels take no field "
+                         "constants")
     L = spec.num_limbs
-    if (L != KERNEL_LIMBS or spec.limb_bits != 16 or spec.fold_terms is None
-            or sum(d for _, d in spec.fold_terms) >= 1 << 10):
-        raise NotImplementedError(
-            f"{spec.name}: the CUDA kernels take fold-friendly primes "
-            "with 16 limbs of 16 bits (fold digits summing below 2^10); "
-            "the CIOS Montgomery branch and the M31 (L=1) step are still "
-            "to be ported (ROADMAP.md, Queue 2)")
     f = [0] * L
     for off, digit in spec.fold_terms:
         f[off] += digit
@@ -148,19 +193,31 @@ def _field(spec: FieldSpec) -> _Field:
 
 
 def launch(name: str, spec: FieldSpec, device, *args) -> None:
-    """Call kernel ``name`` on ``device``'s current stream with the field's
-    constants, then ``args``: tensors go as their data pointers, the rest
-    (ints, ctypes references) as they are. Raises on a refused launch."""
-    fn = getattr(load_kernels(), name)
-    fld = _field(spec)
+    """Call kernel ``name`` on ``device``'s current stream: its M31 form
+    with ``args``, or its 16-limb form with the field's constants, then
+    ``args``. Tensors go as their data pointers, the rest (ints, ctypes
+    references) as they are. Raises on a refused launch."""
+    lib = load_kernels()
+    if kernel_form(spec) == "m31":
+        name, lead = _m31_name(name), ()
+    else:
+        lead = (ctypes.byref(_field(spec)),)
+    fn = getattr(lib, name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.byref(fld),
-                 *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args), stream)
+        err = fn(*lead, *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                          for a in args), stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
-                           f"{load_kernels().ecfft_error_string(err)}")
+                           f"{lib.ecfft_error_string(err)}")
+
+
+def count(wrapper, spec: FieldSpec) -> None:
+    """One launch more of ``wrapper``'s kernel, in the count of its form."""
+    if fd.is_m31(spec):
+        wrapper.m31_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 # -------------------------------------------------------------- wrappers
@@ -224,7 +281,7 @@ def aff1s_ip(spec: FieldSpec, C, state, x2, start: int) -> None:
     if state.is_cuda:
         launch("ecfft_aff1s_ip", spec, state.device, C, x2, state, start,
                A, state.shape[2])
-        aff1s_ip.launches += 1
+        count(aff1s_ip, spec)
         return
     win = state[start:start + A]
     win.copy_(_muladd1_cols(spec, C.unsqueeze(-1), win, x2))
@@ -236,7 +293,7 @@ def aff1g_ip(spec: FieldSpec, C, state, x1, x2, start: int) -> None:
     if state.is_cuda:
         launch("ecfft_aff1g_ip", spec, state.device, C, x1, x2, state,
                start, A, state.shape[2])
-        aff1g_ip.launches += 1
+        count(aff1g_ip, spec)
         return
     state[start:start + A] = _muladd1_cols(spec, C.unsqueeze(-1), x1, x2)
 
@@ -247,7 +304,7 @@ def aff2g_ip(spec: FieldSpec, A_, B_, state, x1, x2, start: int) -> None:
     if state.is_cuda:
         launch("ecfft_aff2g_ip", spec, state.device, A_, B_, x1, x2, state,
                start, A, state.shape[2])
-        aff2g_ip.launches += 1
+        count(aff2g_ip, spec)
         return
     state[start:start + A] = _muladd2_cols(spec, A_.unsqueeze(-1), x1,
                                            B_.unsqueeze(-1), x2)
@@ -279,7 +336,7 @@ def muladd1(spec: FieldSpec, C, x1, x2, out, start: int) -> None:
     if out.is_cuda:
         launch("ecfft_muladd1", spec, out.device, C, x1, x2, out, start, A,
                out.shape[2])
-        muladd1.launches += 1
+        count(muladd1, spec)
         return
     out[start:start + A] = _muladd1_cols(spec, C.unsqueeze(-1), x1, x2)
 
@@ -290,7 +347,7 @@ def muladd2(spec: FieldSpec, A_, B_, x1, x2, out, start: int) -> None:
     if out.is_cuda:
         launch("ecfft_muladd2", spec, out.device, A_, B_, x1, x2, out, start,
                A, out.shape[2])
-        muladd2.launches += 1
+        count(muladd2, spec)
         return
     out[start:start + A] = _muladd2_cols(spec, A_.unsqueeze(-1), x1,
                                          B_.unsqueeze(-1), x2)
@@ -312,18 +369,14 @@ def mulss(spec: FieldSpec, x1, x2, out, start: int) -> None:
     if out.is_cuda:
         launch("ecfft_mulss", spec, out.device, x1, x2, out, start, A,
                out.shape[2])
-        mulss.launches += 1
+        count(mulss, spec)
         return
     out[start:start + A] = _mulss_cols(spec, x1, x2)
 
 
-aff1s_ip.launches = 0
-aff1g_ip.launches = 0
-aff2g_ip.launches = 0
-muladd1.launches = 0
-muladd2.launches = 0
-mulss.launches = 0
 STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2, mulss)
+for _w in STEP_WRAPPERS:
+    _w.launches = _w.m31_launches = 0
 
 
 def mul_rows(spec: FieldSpec, a, b):

@@ -27,11 +27,12 @@ OP_MUL step goes to :func:`ops.step.mulss` and an OP_CMPSEL step to
 any pending run like every generic step. Every step produces canonical residues, so the outputs equal the scan
 executor's bit for bit.
 
-Each fused wrapper launches its hand-written kernel in
-``csrc/fused_kernels.cu`` on a CUDA tensor (or raises), and runs its
-plain int64 PyTorch version on a CPU tensor; each counts its launches in
-``launches``. The plain versions compute the new window from a copy of
-the old one, then write it.
+Each fused wrapper launches its hand-written kernel on a CUDA tensor (or
+raises): ``csrc/fused_kernels.cu`` for 16-limb fields,
+``csrc/m31_kernels.cu`` for M31. On a CPU tensor it runs its plain int64
+PyTorch version; each counts its launches as the step wrappers do
+(``launches``, ``m31_launches``). The plain versions compute the new
+window from a copy of the old one, then write it.
 
 Left out, as plumbing for the TPU: the jitted segments (``SEG_STEPS``,
 ``_SEG_CACHE``, ``ECFFT_UNROLL_DEBUG``), the scoped-VMEM compiler
@@ -61,8 +62,8 @@ from ecfft_tpu_torch.ops.emit import (
     OP_AFFINE, OP_AFFINE_C, OP_CMPSEL, OP_MUL, Schedule, _synth_np)
 
 TW = 128  # fused row tile: pair levels need TW | half, in-tile 2·half | TW
-MAX_LEVELS = 16  # levels per cascade launch (MAX_LEVELS in fused_kernels.cu)
-_KERNEL_TW = 128  # the cascade kernel's largest tile (MAX_TW there)
+MAX_LEVELS = 16  # levels per cascade launch (MAX_LEVELS in levels.cuh)
+_KERNEL_TW = 128  # the cascade kernels' largest tile (MAX_TW, M31_TW)
 
 
 # -------------------------------------------------------------- analysis
@@ -152,7 +153,7 @@ class _SchedMeta:
 
 
 class _Levels(ctypes.Structure):
-    """Mirror of ``struct Levels`` in csrc/fused_kernels.cu."""
+    """Mirror of ``struct Levels`` in csrc/levels.cuh."""
     _fields_ = [("k", ctypes.c_int),
                 ("half", ctypes.c_int * MAX_LEVELS),
                 ("kind", ctypes.c_int * MAX_LEVELS)]
@@ -224,7 +225,7 @@ def fused_bf1(spec: FieldSpec, state, cwin, start: int, half: int) -> None:
     if state.is_cuda:
         step.launch("ecfft_fused_bf1", spec, state.device, cwin, state,
                     start, half, A, state.shape[2])
-        fused_bf1.launches += 1
+        step.count(fused_bf1, spec)
         return
     _pair_plain(spec, state, None, cwin, start, half)
 
@@ -237,7 +238,7 @@ def fused_bf2(spec: FieldSpec, state, awin, bwin, start: int,
     if state.is_cuda:
         step.launch("ecfft_fused_bf2", spec, state.device, awin, bwin, state,
                     start, half, A, state.shape[2])
-        fused_bf2.launches += 1
+        step.count(fused_bf2, spec)
         return
     _pair_plain(spec, state, awin, bwin, start, half)
 
@@ -275,15 +276,14 @@ def fused_cascade(spec: FieldSpec, state, cwins, awins, start: int,
         step.launch("ecfft_fused_cascade", spec, state.device,
                     ctypes.byref(lv), cwins, awins, state, start, TW, A,
                     state.shape[2])
-        fused_cascade.launches += 1
+        step.count(fused_cascade, spec)
         return
     _cascade_plain(spec, state, cwins, awins, start, halves, kinds)
 
 
-fused_bf1.launches = 0
-fused_bf2.launches = 0
-fused_cascade.launches = 0
 FUSED_WRAPPERS = (fused_bf1, fused_bf2, fused_cascade)
+for _w in FUSED_WRAPPERS:
+    _w.launches = _w.m31_launches = 0
 
 
 # --------------------------------------------------------------- executor

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
 versions (the same wrappers on CPU copies of the inputs), bit for bit,
-and ENTER/EXIT on the card, by either executor, against the CPU's.
+and ENTER/EXIT on the card, by either executor, against the CPU's; the
+nine M31 forms likewise, and M31's algorithms against the native engine
+and the CPU.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -16,6 +18,7 @@ import torch
 
 from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields.registry import FIELDS, spec_for_prime
+from ecfft_tpu_torch.native import NativeFFTree
 from ecfft_tpu_torch.ops import _build, schedule, step, unrolled
 
 pytestmark = pytest.mark.cuda
@@ -321,3 +324,126 @@ def test_unported_field_raises_on_card(card):
     c = torch.zeros((8, spec.num_limbs), dtype=torch.int32, device=card)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         step.aff1s_ip(spec, c, z.clone(), z, 0)
+
+
+# ------------------------------------------------------------------ M31
+
+M31 = FIELDS["m31"]
+M31_EDGE = [0, 1, M31.p - 1, M31.p - 2, 1 << 30, (M31.p - 1) // 2, 1 << 16]
+
+
+def _m31(gen, *shape):
+    """Canonical M31 values as (..., 1) int32, the edge values first."""
+    x = torch.randint(0, M31.p, (*shape, 1), generator=gen,
+                      dtype=torch.int32)
+    flat = x.view(-1)
+    flat[:len(M31_EDGE)] = torch.tensor(M31_EDGE, dtype=torch.int32)
+    return x
+
+
+def _m31_call(form, gen, B):
+    """(wrapper, arguments, index of the state among them) of one M31 form
+    on a random state whose window rows start at a tile boundary."""
+    if form.startswith("fused"):
+        A, start, W = 512, 512, 1152
+    else:
+        A, start, W = 200, 264, 520
+    state = _m31(gen, W, B).permute(0, 2, 1).contiguous()
+    x1, x2 = (_m31(gen, B, A).permute(1, 2, 0).contiguous()
+              for _ in range(2))
+    a, c = _m31(gen, A), _m31(gen, A)
+    calls = {
+        "aff1s_ip": (step.aff1s_ip, (c, state, x2, start), 1),
+        "aff1g_ip": (step.aff1g_ip, (c, state, x1, x2, start), 1),
+        "aff2g_ip": (step.aff2g_ip, (a, c, state, x1, x2, start), 2),
+        "muladd1": (step.muladd1, (c, x1, x2, state, start), 3),
+        "muladd2": (step.muladd2, (a, c, x1, x2, state, start), 4),
+        "mulss": (step.mulss, (x1, x2, state, start), 2),
+        "fused_bf1": (unrolled.fused_bf1, (state, c, start, 128), 0),
+        "fused_bf2": (unrolled.fused_bf2, (state, a, c, start, 256), 0),
+        "fused_cascade": (unrolled.fused_cascade, (
+            state, torch.stack([_m31(gen, A) for _ in range(3)]),
+            a.unsqueeze(0), start, (64, 1, 2), (0, 1, 0)), 0),
+    }
+    return calls[form]
+
+
+@pytest.mark.parametrize("B", [1, 5, 256])
+@pytest.mark.parametrize("form", ["aff1s_ip", "aff1g_ip", "aff2g_ip",
+                                  "muladd1", "muladd2", "mulss", "fused_bf1",
+                                  "fused_bf2", "fused_cascade"])
+def test_m31_kernel_matches_plain_version(card, form, B):
+    """Each M31 form against its plain version: the edge values in the
+    first rows, rows outside the window untouched, one launch of the M31
+    form counted and none of the 16-limb one."""
+    wrapper, args, si = _m31_call(form, torch.Generator().manual_seed(B), B)
+    want = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    wrapper(M31, *want)
+    got = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    before = (wrapper.launches, wrapper.m31_launches)
+    wrapper(M31, *got)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.m31_launches) == (before[0],
+                                                        before[1] + 1)
+    assert torch.equal(got[si].cpu(), want[si])
+    assert not torch.equal(want[si], args[si])
+
+
+def test_m31_mulss_squares_one_buffer(card):
+    gen = torch.Generator().manual_seed(2)
+    x = _m31(gen, 64, 3).permute(0, 2, 1).contiguous()
+    state = torch.zeros((96, 1, 3), dtype=torch.int32)
+    want = state.clone()
+    step.mulss(M31, x, x, want, 16)
+    got, xc = state.to(card), x.to(card)
+    step.mulss(M31, xc, xc, got, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("ex", ["scan", "unrolled"])
+def test_m31_enter_exit_on_card_match_native(card, monkeypatch, ex):
+    """n = 1024 emits every fused form at TW = 128."""
+    if ex == "unrolled":
+        monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+    n, gen = 1024, torch.Generator().manual_seed(21)
+    coeffs = _m31(gen, 3, n)
+    gpu = build_fftree_native("m31", n, device=card)
+    nt = NativeFFTree("m31", n)
+    before = [w.m31_launches for w in (*step.STEP_WRAPPERS,
+                                       *unrolled.FUSED_WRAPPERS)]
+    evals = gpu.enter(coeffs.to(card))
+    for b in range(3):
+        assert list(gpu.decode(evals[b])) == nt.enter(
+            [int(v) for v in coeffs[b, :, 0]])
+    assert torch.equal(gpu.exit(evals).cpu(), coeffs)
+    after = [w.m31_launches for w in (*step.STEP_WRAPPERS,
+                                      *unrolled.FUSED_WRAPPERS)]
+    assert sum(after) > sum(before)
+
+
+def test_m31_algorithms_on_card_match_cpu(card, monkeypatch):
+    """The seven other methods over M31 on the card, on each executor,
+    against the CPU's plain versions at n = 1024 (the general modulus at
+    m = 16)."""
+    n, gen = 1024, torch.Generator().manual_seed(23)
+    cpu = build_fftree_native("m31", n, device="cpu")
+    x, h = _m31(gen, 2, n), _m31(gen, 2, n // 2)
+    g, a, c = _m31(gen, 2, 16), _m31(gen, 16), _m31(gen, 16)
+    a[a == 0] = 1  # no zero entry to invert
+    calls = [("extend", (h, 0)), ("extend", (h, 1)), ("mextend", (h, 0)),
+             ("mextend", (h, 1)), ("degree", (cpu.enter(x),)),
+             ("redc_z0", (x,)), ("redc_z1", (x,)), ("modular_reduce", (x,)),
+             ("vanish", (h,)), ("redc_z0", (g, a)), ("redc_z1", (g, a)),
+             ("modular_reduce", (g, a, c))]
+    want = [getattr(cpu, m)(*args) for m, args in calls]
+    for ex in ("scan", "unrolled"):
+        if ex == "unrolled":
+            monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+        gpu = build_fftree_native("m31", n, device=card)
+        before = step.mulss.m31_launches
+        for (m, args), w in zip(calls, want):
+            got = getattr(gpu, m)(*(t.to(card) if isinstance(t, torch.Tensor)
+                                    else t for t in args))
+            assert torch.equal(got.cpu(), w), (ex, m)
+        assert step.mulss.m31_launches > before

@@ -184,14 +184,29 @@ def test_step_wrappers_reject_bad_operands(bad):
         step.aff1s_ip(SPEC, c, state, x2, start)
 
 
-@pytest.mark.parametrize("field", ["m31", "cios"])
+@pytest.mark.parametrize("field", ["m61", "cios"])
 def test_unported_fields_raise(field):
-    """The CIOS Montgomery branch and the M31 (L=1) step are still to be
-    ported: the step functions say so instead of computing."""
-    spec = (FIELDS["m31"] if field == "m31" else spec_for_prime(
-        0x0800000000000011000000000000000000000000000000000000000000000001))
-    assert field == "m31" or spec.fold_terms is None
-    z = torch.zeros((8, spec.num_limbs, 1), dtype=torch.int32)
-    c = torch.zeros((8, spec.num_limbs), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step.aff1s_ip(spec, c, z.clone(), z, 0)
+    """The kernels of other limb counts and the CIOS Montgomery branch are
+    still to be ported: the kernels' field check names the cause; a CIOS
+    prime's step also raises on the CPU, where M61 (4 limbs, fold-friendly)
+    computes."""
+    spec = spec_for_prime(
+        (1 << 61) - 1 if field == "m61" else
+        0x0800000000000011000000000000000000000000000000000000000000000001)
+    cause = "4 limbs" if field == "m61" else "CIOS"
+    assert (spec.num_limbs == 4) == (field == "m61")
+    assert (spec.fold_terms is None) == (field == "cios")
+    with pytest.raises(NotImplementedError, match=f"{cause}.*ROADMAP"):
+        step.kernel_form(spec)
+    if field == "cios":
+        z = torch.zeros((8, spec.num_limbs, 1), dtype=torch.int32)
+        c = torch.zeros((8, spec.num_limbs), dtype=torch.int32)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            step.aff1s_ip(spec, c, z.clone(), z, 0)
+    else:  # 1 + 2·3 on the CPU
+        out = fd.encode(spec, [1] * 8).unsqueeze(-1)
+        step.aff1s_ip(spec, fd.encode(spec, [2] * 8), out,
+                      fd.encode(spec, [3] * 8).unsqueeze(-1), 0)
+        assert fd.decode(spec, out[..., 0]).tolist() == [7] * 8
+    assert step.kernel_form(FIELDS["m31"]) == "m31"
+    assert step.kernel_form(SPEC) == "limbs16"

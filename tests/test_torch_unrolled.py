@@ -127,49 +127,64 @@ def test_muladd_takes_a_view_of_the_state_and_rejects_bad_operands():
 # ------------------------------------------------------ fused levels
 
 
-def _state_and_rows(rng, W, B, k, A):
-    state = _layout(_ints(rng, (W, B)))
-    rows = [fd.encode(SPEC, _ints(rng, (A,))) for _ in range(k)]
-    return state, rows
+def _state_and_rows(rng, W, B, k, A, spec=SPEC):
+    if spec is SPEC:
+        state = _layout(_ints(rng, (W, B)))
+        rows = [fd.encode(SPEC, _ints(rng, (A,))) for _ in range(k)]
+        return state, rows
+    # M31: one 32-bit limb, p − 1 in the first rows of the window's half
+    def vals(*shape):
+        x = rng.randint(0, spec.p, size=(*shape, 1))
+        x[:2] = spec.p - 1
+        return torch.from_numpy(x.astype(np.int32))
+    return (vals(W, B).permute(0, 2, 1).contiguous(),
+            [vals(A) for _ in range(k)])
 
 
 @pytest.mark.parametrize("form", ["bf1-ht1", "bf1-ht2", "bf2-ht2",
-                                  "cascade"])
+                                  "cascade", "bf1-ht2-m31", "bf2-ht1-m31",
+                                  "cascade-m31"])
 def test_fused_levels_match_pallas(tw8, form):
     """Pair levels at half = TW and 2·TW (the 2-mul form at 2·TW, where
     the partner tile is two tiles away) with a non-zero window start, and
     a cascade of mixed kinds (two kind-1 levels, so the A rows pair by
-    their own counter); rows outside the window stay as they were."""
+    their own counter); rows outside the window stay as they were. The
+    "-m31" forms run the same over M31, where the JAX kernels take their
+    M31 tile functions."""
     rng = np.random.RandomState(17)
     B = 4
-    launches = [w.launches for w in tur.FUSED_WRAPPERS]
+    spec, jspec = ((FIELDS["m31"], JFIELDS["m31"]) if form.endswith("-m31")
+                   else (SPEC, JSPEC))
+    form = form.removesuffix("-m31")
+    launches = [(w.launches, w.m31_launches) for w in tur.FUSED_WRAPPERS]
     if form == "cascade":
         W, A, start = 32, 16, 8
         halves, kinds = (4, 1, 2), (1, 0, 1)
-        state, rows = _state_and_rows(rng, W, B, 5, A)
+        state, rows = _state_and_rows(rng, W, B, 5, A, spec)
         cw, aw = torch.stack(rows[:3]), torch.stack(rows[3:])
         got = state.clone()
-        tur.fused_cascade(SPEC, got, cw, aw, start, halves, kinds)
-        ref = jur._fused_cascade(JSPEC, _j(state), _j(cw), _j(aw), start,
+        tur.fused_cascade(spec, got, cw, aw, start, halves, kinds)
+        ref = jur._fused_cascade(jspec, _j(state), _j(cw), _j(aw), start,
                                  halves, kinds, B, True)
     else:
         half = 8 * int(form[-1])
         W, A, start = 2 * half + 4 * half, 2 * half, 2 * half
-        state, (c1, c2) = _state_and_rows(rng, W, B, 2, A)
+        state, (c1, c2) = _state_and_rows(rng, W, B, 2, A, spec)
         got = state.clone()
         if form.startswith("bf1"):
-            tur.fused_bf1(SPEC, got, c1, start, half)
-            ref = jur._fused_bf1(JSPEC, _j(state), _j(c1), start, half, A,
+            tur.fused_bf1(spec, got, c1, start, half)
+            ref = jur._fused_bf1(jspec, _j(state), _j(c1), start, half, A,
                                  B, True)
         else:
-            tur.fused_bf2(SPEC, got, c1, c2, start, half)
-            ref = jur._fused_bf2(JSPEC, _j(state), _j(c1), _j(c2), start,
+            tur.fused_bf2(spec, got, c1, c2, start, half)
+            ref = jur._fused_bf2(jspec, _j(state), _j(c1), _j(c2), start,
                                  half, A, B, True)
     np.testing.assert_array_equal(_u32(got), np.asarray(ref))
     assert torch.equal(got[:start], state[:start])
     assert torch.equal(got[start + A:], state[start + A:])
     assert not torch.equal(got[start:start + A], state[start:start + A])
-    assert [w.launches for w in tur.FUSED_WRAPPERS] == launches
+    assert [(w.launches, w.m31_launches)
+            for w in tur.FUSED_WRAPPERS] == launches
 
 
 def test_fused_levels_reject_broken_pairings(tw8):

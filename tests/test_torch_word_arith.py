@@ -5,7 +5,10 @@ Python integers: pack/unpack, the 1- and 2-product multiply-adds and the
 reduction, for secp256k1 and 2^255 − 19, on edge values, seeded random
 values and hypothesis cases (512-bit inputs fed straight to the
 reduction). Also: ``ops/step.py::_Field`` mirrors ``struct Field`` field
-by field. Needs g++ only; imports no JAX."""
+by field. The M31 kernels' ``csrc/m31_arith.cuh`` goes into the same
+harness: its sum, product, the two multiply-adds and the reduction of any
+64-bit value, on edge, seeded and hypothesis values. Needs g++ only;
+imports no JAX."""
 
 import ctypes
 import os
@@ -20,9 +23,11 @@ from ecfft_tpu_torch.ops import _build, step
 
 HEADER = os.path.join(os.path.dirname(_build.KERNEL_SOURCES[0]),
                       "word_arith.cuh")
+M31_HEADER = os.path.join(os.path.dirname(HEADER), "m31_arith.cuh")
 HARNESS = r"""
 #include <cstddef>
 #include "word_arith.cuh"
+#include "m31_arith.cuh"
 
 template <int N> static void in(const uint32_t* p, uint32_t (&a)[N]) {
   for (int k = 0; k < N; ++k) a[k] = p[k];
@@ -62,6 +67,15 @@ void h_layout(size_t* o) {
   o[2] = offsetof(Field, slack); o[3] = offsetof(Field, pw);
   o[4] = offsetof(Field, fw); o[5] = sizeof(Field);
 }
+uint32_t h_m31_reduce(uint64_t t) { return m31::reduce(t); }
+uint32_t h_m31_add(uint32_t a, uint32_t b) { return m31::add(a, b); }
+uint32_t h_m31_mul(uint32_t a, uint32_t b) { return m31::mul(a, b); }
+uint32_t h_m31_mul_add(uint32_t c, uint32_t y, uint32_t x) {
+  return m31::mul_add(c, y, x);
+}
+uint32_t h_m31_mul_add2(uint32_t a, uint32_t x, uint32_t b, uint32_t y) {
+  return m31::mul_add2(a, x, b, y);
+}
 }
 """
 
@@ -80,13 +94,21 @@ def lib():
     if not os.path.exists(src) or open(src).read() != HARNESS:
         with open(src, "w") as f:
             f.write(HARNESS)
-    if _build._stale(out, [src, HEADER]):
+    if _build._stale(out, [src, HEADER, M31_HEADER]):
         _build._compile(lambda o: [
             "g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
             os.path.dirname(HEADER), "-o", o, src], out)
     so = ctypes.CDLL(out)
     so.h_load_store.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_long, ctypes.c_void_p]
+    u32 = ctypes.c_uint32
+    so.h_m31_reduce.argtypes = [ctypes.c_uint64]
+    for name, n in (("h_m31_add", 2), ("h_m31_mul", 2),
+                    ("h_m31_mul_add", 3), ("h_m31_mul_add2", 4)):
+        getattr(so, name).argtypes = [u32] * n
+    for name in ("h_m31_reduce", "h_m31_add", "h_m31_mul", "h_m31_mul_add",
+                 "h_m31_mul_add2"):
+        getattr(so, name).restype = u32
     return so
 
 
@@ -274,3 +296,51 @@ def test_hypothesis_reduce_512_bit_inputs(lib, hi, lo, which):
     spec = SPECS[which]
     v = hi << 256 | lo
     assert reduce(lib, spec, v) == v % spec.p
+
+
+# ------------------------------------------------------------------ M31
+
+M31 = (1 << 31) - 1
+M31_EDGE = [0, 1, 2, M31 - 1, M31 - 2, 1 << 30, (M31 - 1) // 2, 1 << 16,
+            (1 << 16) - 1, (1 << 30) - 1, (1 << 30) + 1]
+
+
+def _m31_all(lib, a, b, c, d):
+    """Each M31 function of the header on canonical a, b, c, d against
+    Python integers."""
+    assert lib.h_m31_add(a, b) == (a + b) % M31
+    assert lib.h_m31_mul(a, b) == a * b % M31
+    assert lib.h_m31_mul_add(a, b, c) == (a * b + c) % M31
+    assert lib.h_m31_mul_add2(a, b, c, d) == (a * b + c * d) % M31
+
+
+def test_m31_edge_values(lib):
+    for a in M31_EDGE:
+        for b in M31_EDGE:
+            _m31_all(lib, a, b, b, a)
+            _m31_all(lib, a, b, M31 - 1, M31 - 1)
+    for t in (0, M31, M31 + 1, 2 * M31, M31 * M31, (M31 - 1) ** 2,
+              2 * (M31 - 1) ** 2, (M31 - 1) ** 2 + M31 - 1, 1 << 62,
+              (1 << 63) - 1, 1 << 63, (1 << 64) - 1, (1 << 64) - M31,
+              (1 << 32) - 1, 1 << 31):
+        assert lib.h_m31_reduce(t) == t % M31
+
+
+def test_m31_seeded_random_values(lib):
+    rng = random.Random(31)
+    for _ in range(2000):
+        _m31_all(lib, *(rng.randrange(M31) for _ in range(4)))
+        t = rng.getrandbits(64)
+        assert lib.h_m31_reduce(t) == t % M31
+
+
+m31_el = st.integers(0, M31 - 1)
+
+
+@settings(max_examples=300, deadline=None)
+@given(a=m31_el, b=m31_el, c=m31_el, d=m31_el,
+       t=st.one_of(st.integers(0, (1 << 64) - 1),
+                   st.integers(0, 1 << 20).map(lambda e: (1 << 64) - 1 - e)))
+def test_m31_hypothesis(lib, a, b, c, d, t):
+    _m31_all(lib, a, b, c, d)
+    assert lib.h_m31_reduce(t) == t % M31

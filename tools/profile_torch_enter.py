@@ -3,16 +3,17 @@
 
 Usage, from the repository root:
 
-    python3 tools/profile_torch_enter.py [method] [n] [batch]
+    python3 tools/profile_torch_enter.py [method] [n] [batch] [field]
 
-(default: enter 65536 256, the main path). ``method`` is one of the
+(default: enter 65536 256 secp256k1, the main path; ``field`` may be
+``m31``). ``method`` is one of the
 FFTree's: enter, exit, extend, mextend, degree, redc_z0, redc_z1,
 modular_reduce, vanish; or general_redc_z0, general_modular_reduce for a
 modulus table given at run time (a seeded random one). ``n`` is the
 number of points of the input, on a tree of that size (twice that size
 for extend, mextend and vanish); random evaluations have full degree.
 ``ECFFT_EXECUTOR=unrolled`` in the environment selects the unrolled
-executor. Builds a secp256k1 tree with the native engine, runs the
+executor. Builds a tree of the field with the native engine, runs the
 transform once to warm up, then once more under ``torch.profiler``. Prints the wall time of the profiled call
 (fenced by ``torch.cuda.synchronize()``), the device kernels grouped by
 name with their time, share and launches, the device busy share (the
@@ -49,6 +50,7 @@ def main() -> int:
     alg = sys.argv[1] if len(sys.argv) > 1 else "enter"
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 1 << 16
     batch = int(sys.argv[3]) if len(sys.argv) > 3 else 256
+    field = sys.argv[4] if len(sys.argv) > 4 else "secp256k1"
     if not torch.cuda.is_available():
         print("profile_torch_enter: no CUDA device", file=sys.stderr)
         return 1
@@ -56,17 +58,22 @@ def main() -> int:
     general = alg.startswith("general_")
     method = alg[len("general_"):] if general else alg
     size = 2 * n if method in ("extend", "mextend", "vanish") else n
-    tree = build_fftree_native("secp256k1", size, device=dev).prepare(())
+    tree = build_fftree_native(field, size, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def limbs(*shape):  # top limb below p's: canonical
+    def limbs(*shape):  # canonical: M31 values, or a top limb below p's
+        if tree.spec.num_limbs == 1:
+            return torch.randint(0, tree.spec.p, (*shape, 1), generator=gen,
+                                 device=dev, dtype=torch.int32)
         return torch.randint(0, 1 << 15, (*shape, 16), generator=gen,
                              device=dev, dtype=torch.int32)
 
     x = limbs(batch, n)
     tables = ()
     if general:
-        tables = (limbs(n) | 1,) * (2 if method == "modular_reduce" else 1)
+        a = limbs(n)  # no zero entry to invert
+        a = a.clamp(min=1) if tree.spec.num_limbs == 1 else a | 1
+        tables = (a,) * (2 if method == "modular_reduce" else 1)
 
     def run(x):
         return getattr(tree, method)(x, *tables)
@@ -86,7 +93,7 @@ def main() -> int:
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     cpu_ms = sum(e.self_cpu_time_total for e in events
                  if e.device_type == DeviceType.CPU) / 1e3
-    print(f"{alg} n={n} B={batch}: profiled wall {wall * 1e3:.3f} ms on "
+    print(f"{alg} {field} n={n} B={batch}: profiled wall {wall * 1e3:.3f} ms on "
           f"{torch.cuda.get_device_name(0)}")
     if not kernels:
         print("the profiler recorded no device kernels")
