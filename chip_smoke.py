@@ -8,12 +8,17 @@ stops the run with a non-zero exit:
 
 1. device report: the card, ``nvidia-smi``'s name and power limit, its SM
    count and top SM clock, the CUDA version, ``nvcc`` and ``triton``;
-2. build: the kernels (``ecfft_tpu_torch/csrc``) and the native engine,
-   then the instructions one thread of each kernel issues, per pipe, read
-   from its SASS (``tools/sass_count.py``; for the operation bounds), and
-   each kernel's registers and shared bytes, the M31 forms' too;
+2. build: the six kernel forms this run takes (``ecfft_tpu_torch/csrc``:
+   secp256k1's "fold16", "m31", and phase 10's "cios16", "fold4", "cios3"
+   and "cios13"), one ``nvcc`` each, all started together, and the native
+   engine; then the instructions one thread of each kernel of each form
+   issues, per pipe, read from its SASS (``tools/sass_count.py``; for the
+   operation bounds), and each kernel's registers, shared bytes and
+   spills;
 3. set-up: a native-built secp256k1 tree at n = 2^16, its pool, the
-   ENTER/EXIT schedules and the unrolled executor's fusion analysis;
+   ENTER/EXIT schedules and the unrolled executor's fusion analysis; 3b
+   the same for M31; 3c for each general prime of phase 10, registered
+   with ``register_field`` from the curve FIND_CURVE found for it;
 4. each of the nine kernels against its plain PyTorch version on the
    card, bit for bit: edge values and seeded random values at B = 1 and
    256 with rows outside the window untouched (the state×state product
@@ -23,11 +28,18 @@ stops the run with a non-zero exit:
    for secp256k1 and for 2^255 − 19; then each timed at its main shape
    (CUDA events, with the SM clock and power draw read just after) beside
    its plain version, its bound (bytes or word products) and this
-   design's issue bound; then the nine M31 forms likewise (edge values 0,
-   1, p − 1, p − 2, 2^30, (p − 1)/2, 2^16 and seeded random ones at B = 1
-   and 256, rows outside the window untouched, the square, then the M31
-   main shapes at B = 2048), each timed beside its plain version, its
-   byte bound and the int64 PyTorch expression of the same function;
+   design's issue bound; then (4b) the nine M31 forms likewise (edge
+   values 0, 1, p − 1, p − 2, 2^30, (p − 1)/2, 2^16 and seeded random ones
+   at B = 1 and 256, rows outside the window untouched, the square, then
+   the M31 main shapes at B = 2048), each timed beside its plain version,
+   its byte bound and the int64 PyTorch expression of the same function;
+   then (4c) the general prime's forms likewise (edge values 0, 1, 2,
+   p − 1, p − 2, p − 3, (p − 1)/2, R mod p, R² mod p, p − (R mod p) and
+   the largest below 2^(16L − 1); seeded random ones), each timed at its
+   field's phase-10 shape: "cios16" with the STARK prime's constants at
+   the full width (and the 256-bit prime of slack 0 at the small shapes),
+   "fold4" (M61), "band16" (2^256 − 1053 on the "fold16" form), "cios3"
+   and "cios13";
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -45,15 +57,22 @@ stops the run with a non-zero exit:
    255, the two executors against each other on the whole batch, its
    launch counts against the schedule's steps and the fusion analysis,
    and timed warm (best of 2, fenced by ``torch.cuda.synchronize()``);
-9. M31: a native-built tree at n = 2^16 with its pool, schedules and
-   unrolled analysis; a batch of B = 2048 through all eight algorithms on
+9. M31: a batch of B = 2048 at n = 2^16 through all eight algorithms on
    both executors (ENTER with its EXIT round trip, then the others as in
    phase 8), each gated bit for bit against the native engine on lanes 0
    and B − 1 and the executors against each other on the whole batch, its
-   M31 launches against the schedule and the analysis, timed warm with
-   the peak device memory; every M31 form must run;
-10. a JSON line of the eighteen kernels (the nine 16-limb forms, whose
-   launches are phases 6–8's, and the nine M31 forms, phase 9's), the
+   launches against the schedule and the analysis, timed warm with the
+   peak device memory; every M31 form must run;
+10. the general prime, each field as phase 9 on both executors: a 256-bit
+   prime of slack 0 without a fold (the CIOS form, 16 limbs) at the full
+   width, n = 2^16, B = 256, all eight algorithms; M61 (the fold form, 4
+   limbs) at n = 2^16, B = 1024, ENTER with its EXIT round trip and
+   VANISH; the STARK prime, 2^256 − 1053 and the CIOS primes of 3 and 13
+   limbs at n = 2^10, B = 256, all eight algorithms; every form's nine
+   kernels must run;
+11. a JSON line of the kernels (the nine 16-limb forms, whose launches are
+   phases 6–8's, the nine M31 forms, phase 9's, and the nine of each
+   general form, phase 10's, named ``"aff1s_ip[cios16]"`` and so on), the
    ``nvidia-smi`` line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -72,10 +91,11 @@ import torch
 
 from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields import device as fd
-from ecfft_tpu_torch.fields.registry import FIELDS, spec_for_prime
+from ecfft_tpu_torch.fields.registry import (FIELDS, register_field,
+                                             spec_for_prime)
 from ecfft_tpu_torch import native
 from ecfft_tpu_torch.native import NativeFFTree, native_library
-from ecfft_tpu_torch.ops import emit, step, unrolled
+from ecfft_tpu_torch.ops import _build, emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
 from tools import sass_count
 
@@ -89,6 +109,70 @@ EDGE = [0, 1, P - 1, P - 2, P // 2, 2**16, 2**255 % P, (P - 1) // 2]
 M31 = FIELDS["m31"]
 M31_N, M31_BATCH = 1 << 16, 2048  # (131200, 1, 2048) int32 = 1.07 GB
 M31_EDGE = [0, 1, M31.p - 1, M31.p - 2, 1 << 30, (M31.p - 1) // 2, 1 << 16]
+# the general prime (phases 4c and 10): fields a user registers with
+# register_field after FIND_CURVE (``native.find_curve_parallel`` found
+# each curve offline, its coset point drawn as field_from_curve_search
+# draws it), as lib.rs hardcodes secp256k1's curve. label: (p, a, B = b²,
+# subgroup generator, coset offset, 2-adicity)
+CURVES = {
+    # 256 bits, slack 0, no fold: the CIOS form at 16 limbs, full width
+    "cios16": (
+        0xaacdabbb49c9c6072c54a01283037cadfde8ec5e3e1544596ebbec4cc598e9c7,
+        0x69f41e7a9e125a221a9f39e1a970e266894abacbfecdbf18a25ae4679bc9327c,
+        0x42ab9776845b792ed01b295180db18df09fa72cbfa5a52fa9da872dac8d0b616,
+        (0x8d1869d5830133c2f57e5c44cf7f8ab2c9634041c199f3117741751270d42c64,
+         0x3df97905a2786cbdd7ba704200709564773cf304a4d754161a62f24eb7110801),
+        (0x1e2feb89414c343c1027c4d1c386bbc4cd613e30d8f16adf91b7584a2265b1f5,
+         0x40412c9cdd62c507e5114bf808d7578b44ed38e788163e79d02d02b7b8d57461),
+        18),
+    # the STARK prime (no fold, slack 4): the host's isogeny chain builder
+    # (ec/curve.py) stops after a few levels on most of its curves; this
+    # one builds trees up to n = 2^10
+    "stark": (
+        0x0800000000000011000000000000000000000000000000000000000000000001,
+        0x05b2daa498b030603df3e25dc566f9124bcb7e072f463eaffeb0074b7d6f124b,
+        0x0779d1b5e0189e099c9ac94e378ca60584332f6571244a90443872236b814800,
+        (0x0793a98892746f3d979a4880eb9eeedfcf2c3fc09834d5d9cb7bee1a25a84c68,
+         0x0034cb06dcfdc21a8c91848f8259d31c3e0262d2eff156d4dbd7a7440479ca8f),
+        (0x035bf992c9e9c616612e7696a6cecc1b78e510617311d8a3c2ce6f447ed4d57b,
+         0x0491bedba9c70d50099adefceb688bb0d765d2f69d17157394a79ccac610ad95),
+        13),
+    # M61 = 2^61 - 1: the fold form at 4 limbs (F = 8, slack 3)
+    "fold4": (
+        (1 << 61) - 1, 0xecdc0b8148d8108, 0x187d577ae1410e52,
+        (0x149c57a8c28cbfbc, 0x24cf3f3202f1f3),
+        (0x19ac27c6d8f16adf, 0x1ee5e2c2e9610638), 20),
+    # 2^256 - 1053: the fold form at 16 limbs with its digit past 2^10
+    "band16": (
+        (1 << 256) - 1053,
+        0x9a56acd64f31e54d30ff201bf9201bfa8ba605452db839c9d9e90ceaeac684c0,
+        0x78ee8aefb331e12e025d5c44ffbf47e1da7d0d58ee3d06ecb4a7db04f8f175c7,
+        (0xda62ee4d341bb59c3d5bc41b48c0db9ce1d692d412e0f796df23973b79f8a21f,
+         0x7c02beb9b0c6c0128ffa1fed0c8df362d5a301e938b18adbc2cd240ca6540ed3),
+        (0x35bf992dc9e9c616612e7696a6cecc1b78e510617311d8a3c2ce6f447ed4d57b,
+         0xbd43f7a6711539d84b0701ca0a528608b3765cc4f6b8c4610d291119e08761ed),
+        17),
+    # CIOS at odd limb counts: R = 2^48 and 2^208, a 16-bit last round
+    "cios3": (
+        0xff8000000f, 0x3f2f3e08fa, 0x4c03da9c52,
+        (0xaf6176c937, 0x15a9a765ad), (0xcdd8f16adf, 0x5c24f4ed43), 14),
+    "cios13": (
+        0xd9cd502d42af1ffe0de8d79f49af6d114c4a6f188a424e61cb,
+        0x156425c5244c746cccfb5a1fbd51575e705dc17ec44fcecaa5,
+        0x81a00041e06f254041685fa1d7ae8a674f95f1f82b8629da3b,
+        (0x36fc711e2bab16219646077eda21fc4fb3380e7f230776583b,
+         0x1f4c8606415d7202ee1dc7daa9045922f6e6eb5b26f25f6a08),
+        (0x7e1e2feb89414c343c1027c4d1c386bbc4cd613e30d8f16adf,
+         0xb5e528edf47a8687b256827cba3aee6d657c5a3e3dad290240), 17),
+}
+# each field's path (phase 10): n, B, and what runs on both executors
+# ("all": the eight algorithms; "enter": ENTER with its EXIT round trip
+# and VANISH, whose OP_MUL steps launch mulss)
+PATHS = {"cios16": (1 << 16, 256, "all"), "fold4": (1 << 16, 1024, "enter"),
+         "stark": (1 << 10, 256, "all"), "band16": (1 << 10, 256, "all"),
+         "cios3": (1 << 10, 256, "all"), "cios13": (1 << 10, 256, "all")}
+GSPEC = {label: register_field(f"gp_{label}", *curve)
+         for label, curve in CURVES.items()}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
 # sm_90, per SM and clock (the CUDA C++ Programming Guide's throughput
 # table, compute capability 9.0): 64 results of "32-bit integer multiply,
@@ -127,24 +211,27 @@ WRAPPERS = {w.__name__: w
 SCAN_KERNELS = ("aff1s_ip", "aff1g_ip", "aff2g_ip")
 UNROLLED_KERNELS = ("aff1s_ip", "muladd1", "muladd2", "fused_cascade",
                     "fused_bf1", "fused_bf2")
-# the SASS function of each wrapper's kernel (muladd1/2 launch
-# step_kernel<1>/<2>, the kernels of aff1g/aff2g); the kernels on 32-bit
-# words (word_arith.cuh), whose fold runs one block per word of F
-SASS_NAMES = {"aff1s_ip": "aff1s_kernel", "aff1g_ip": "step_kernelILi1E",
+# the SASS function of each wrapper's kernel in a word form's library
+# (step_kernels.cu, fused_kernels.cu: muladd1/2 launch step_kernel<1>/<2>,
+# the kernels of aff1g/aff2g) and in the M31 form's (m31_kernels.cu); each
+# form has a library of its own
+SASS_NAMES = {"aff1s_ip": "step_kernelILi0E", "aff1g_ip": "step_kernelILi1E",
               "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
-              "muladd2": "step_kernelILi2E", "fused_bf1": "pair_kernelILb0E",
-              "fused_bf2": "pair_kernelILb1E",
-              "fused_cascade": "cascade_kernel", "mulss": "mulss_kernel"}
-WORD_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade",
-                "mulss")
-# the M31 forms' SASS functions (csrc/m31_kernels.cu); the 16-limb names
-# above are matched only in functions without "m31_" in their name
+              "muladd2": "step_kernelILi2E", "mulss": "step_kernelILi3E",
+              "fused_bf1": "pair_kernelILb0E", "fused_bf2": "pair_kernelILb1E",
+              "fused_cascade": "cascade_kernel"}
 M31_SASS_NAMES = {
     "aff1s_ip": "m31_step_kernelILi0E", "aff1g_ip": "m31_step_kernelILi1E",
     "aff2g_ip": "m31_step_kernelILi2E", "muladd1": "m31_step_kernelILi1E",
     "muladd2": "m31_step_kernelILi2E", "mulss": "m31_step_kernelILi3E",
     "fused_bf1": "m31_pair_kernelILb0E", "fused_bf2": "m31_pair_kernelILb1E",
     "fused_cascade": "m31_cascade_kernel"}
+# the forms phase 2 builds: secp256k1's, M31's and phase 10's
+FORMS = ("fold16", "m31", "cios16", "fold4", "cios3", "cios13")
+SASS = {}  # form → {wrapper: its kernel's SASS instructions} (phase 2)
+FORM_SPEC = {"fold16": SPEC, "m31": M31, "cios16": GSPEC["cios16"],
+             "fold4": GSPEC["fold4"], "cios3": GSPEC["cios3"],
+             "cios13": GSPEC["cios13"]}  # a field of each form
 
 
 def log(*a):
@@ -175,18 +262,30 @@ def rand_limbs(shape, gen, spec=SPEC):
     if fd.is_m31(spec):
         return torch.randint(0, spec.p, (*shape, 1), generator=gen,
                              device=DEV, dtype=torch.int32)
-    x = torch.randint(0, 1 << 16, (*shape, L), generator=gen, device=DEV,
-                      dtype=torch.int32)
+    x = torch.randint(0, 1 << 16, (*shape, spec.num_limbs), generator=gen,
+                      device=DEV, dtype=torch.int32)
     top = spec.to_limbs(spec.p)[-1]
     x[..., -1] = torch.randint(0, top, shape, generator=gen, device=DEV,
                                dtype=torch.int32)
     return x
 
 
+def general_edges(spec):
+    """A general prime's edge values: 0, 1, 2, p − 1, p − 2, (p − 1)/2,
+    R mod p and R² mod p (1 and R in Montgomery form), p − (R mod p), and
+    the largest values below 2^(16L − 1) and p: the sums of two products
+    of values near p − 1 reach the CIOS reduction's bound."""
+    p, R = spec.p, spec.r
+    return sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, R * R % p,
+                   p - R % p, ((1 << (16 * spec.num_limbs - 1)) - 1) % p,
+                   p - 3})
+
+
 def edge_rows(A, B, shift=0, spec=SPEC):
     """(A, L, B) limbs cycling through the edge values, and (A, L) rows
     that pair every edge coefficient with every edge value."""
-    edge = M31_EDGE if fd.is_m31(spec) else EDGE
+    edge = (M31_EDGE if fd.is_m31(spec) else EDGE if spec in (SPEC, ED)
+            else general_edges(spec))
     E = len(edge)
     x = fd.encode(spec, [[edge[(i + b + shift) % E] for b in range(B)]
                          for i in range(A)], DEV)
@@ -216,74 +315,73 @@ def cuda_ms(fn, reps, settle_s=0.0):
 
 def reset_counts():
     for w in WRAPPERS.values():
-        w.launches = w.m31_launches = 0
+        w.launches.clear()
 
 
 def read_counts(spec=SPEC):
     """Each wrapper's launches of the form that takes ``spec``."""
-    m31 = fd.is_m31(spec)
-    return {k: w.m31_launches if m31 else w.launches
-            for k, w in WRAPPERS.items()}
+    form = step.kernel_form(spec)
+    return {k: w.launches[form] for k, w in WRAPPERS.items()}
 
 
 # ------------------------------------------------------------ the bounds
 
 
-def kernel_sass(lib: str) -> tuple:
-    """Each wrapper's kernel as SASS instructions (``cuobjdump -sass``):
-    the 16-limb forms', then the M31 forms'."""
+def kernel_sass(lib: str, form: str) -> dict:
+    """Each wrapper's kernel in ``form``'s library as SASS instructions
+    (``cuobjdump -sass``)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     funcs = sass_count.functions(subprocess.run(
         [tool, "-sass", lib], capture_output=True, text=True,
         check=True).stdout)
-    out = []
-    for names, m31 in ((SASS_NAMES, False), (M31_SASS_NAMES, True)):
-        found = {k: insts for k, pat in names.items()
-                 for name, insts in funcs.items()
-                 if pat in name and ("m31_" in name) == m31}
-        check(set(found) == set(names), f"SASS functions found: {found}")
-        out.append(found)
-    return tuple(out)
+    names = M31_SASS_NAMES if form == "m31" else SASS_NAMES
+    found = {k: insts for k, pat in names.items()
+             for name, insts in funcs.items() if pat in name}
+    check(set(found) == set(names), f"{form}: SASS functions found: "
+                                     f"{sorted(found)}")
+    return found
 
 
-def kernel_resources(lib: str) -> list:
-    """Registers, shared bytes and stack of each kernel, one line each, as
-    ``cuobjdump -res-usage`` prints them."""
+def kernel_resources(lib: str, form: str) -> list:
+    """Registers, shared bytes, stack and spills of each kernel of
+    ``form``'s library, one line each, as ``cuobjdump -res-usage`` prints
+    them."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lines = subprocess.run([tool, "-res-usage", lib], capture_output=True,
                            text=True, check=True).stdout.splitlines()
+    names = M31_SASS_NAMES if form == "m31" else SASS_NAMES
     out = []
     for i, line in enumerate(lines[:-1]):
         if line.strip().startswith("Function ") and "REG:" in lines[i + 1]:
             name = line.strip()[len("Function "):].rstrip(":")
-            names = (M31_SASS_NAMES if "m31_" in name else SASS_NAMES)
             short = next((k for k in names.values() if k in name), name)
-            out.append(f"{short}: {lines[i + 1].strip()}")
-    check(len(out) >= len(set(SASS_NAMES.values()))
-          + len(set(M31_SASS_NAMES.values())),
-          f"cuobjdump -res-usage named {len(out)} kernels")
+            out.append(f"[{form}] {short}: {lines[i + 1].strip()}")
+    check(len(out) >= len(set(names.values())),
+          f"cuobjdump -res-usage named {len(out)} kernels of {form}")
     return out
 
 
-def fold_nonzero(kind, spec=SPEC) -> int:
-    """Nonzero digits of F = 2^256 mod p as the kernel's fold reads them:
-    32-bit words for the word kernels, 16-bit limbs for the others (the
-    M31 forms fold by shifts: none)."""
-    if fd.is_m31(spec):
+def words(spec) -> int:
+    return (spec.num_limbs + 1) // 2
+
+
+def fold_nonzero(spec=SPEC) -> int:
+    """Nonzero 32-bit words of the fold multiplier F = 2^(16L) mod p as
+    the word kernels' fold reads them (the CIOS and M31 forms have none)."""
+    if fd.is_m31(spec) or fd.is_mont(spec):
         return 0
-    fld = step._field(spec)
-    return sum(1 for v in (fld.fw if kind in WORD_KERNELS else fld.f) if v)
+    return sum(1 for v in step._field(spec).fw if v)
 
 
 def thread_work(kind, A, B, kinds=(), spec=SPEC):
     """(threads, instructions one thread issues per pipe) of one call
     on a window of A rows and B lanes, along the path this data takes
     (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one block
-    per nonzero digit of F in each)."""
+    per nonzero word of F in each)."""
     m31 = fd.is_m31(spec)
-    per = sass_count.thread_counts((M31_SASS if m31 else SASS)[kind],
-                                   FOLD_ROUNDS, fold_nonzero(kind, spec),
-                                   kinds)
+    per = sass_count.thread_counts(SASS[step.kernel_form(spec)][kind],
+                                   FOLD_ROUNDS, fold_nonzero(spec), kinds,
+                                   max(words(spec), 1))
     # one thread an element (an M31 pair level: a pair): a cascade's
     # blocks are always full, and the idle threads of a ragged block issue
     # next to nothing
@@ -300,27 +398,31 @@ def thread_work(kind, A, B, kinds=(), spec=SPEC):
 
 def word_products(kind, kinds=(), spec=SPEC) -> int:
     """32x32->64-bit word products one element needs, whatever kernel
-    computes it: 64 per product of two 8-word values, and per reduction
-    the fold's products of F's nonzero words by the high half's 8 words,
-    then by the words left after one round (the high part is then at
-    most 2F: two words for secp256k1); one per M31 product, whose
-    reduction is shifts and adds. A cascade sums its levels."""
+    computes it. For NW words an element: NW² per product; per reduction,
+    in the fold form the products of F's nonzero words by the high part's
+    NW words, then by the words left after one round (at most 2F: two
+    words for secp256k1), in the CIOS form NW·(NW + 1) (NW rounds of m and
+    m·p). One per M31 product, whose reduction is shifts and adds. A
+    cascade sums its levels."""
     if fd.is_m31(spec):
         return (sum(1 + k for k in kinds) if kind == "fused_cascade"
                 else 1 + (kind in ("aff2g_ip", "muladd2", "fused_bf2")))
-    F = (1 << 256) % spec.p
-    fold = sum(1 for k in range(8) if (F >> 32 * k) & 0xFFFFFFFF) * (
-        8 + -(-(2 * F).bit_length() // 32))
+    nw = words(spec)
+    if fd.is_mont(spec):
+        red = nw * (nw + 1)
+    else:
+        F = spec.r % spec.p
+        red = fold_nonzero(spec) * (nw + -(-(2 * F).bit_length() // 32))
     if kind == "fused_cascade":
-        return sum(64 * (1 + k) + fold for k in kinds)
+        return sum(nw * nw * (1 + k) + red for k in kinds)
     two = kind in ("aff2g_ip", "muladd2", "fused_bf2")
-    return 64 * (1 + two) + fold
+    return nw * nw * (1 + two) + red
 
 
 def bound(kind, A, B, kinds=(), spec=SPEC):
     """The least time of one call: the larger of the bytes the function
     must move (each input read once and each output written once: 4L B
-    per element per window, 4L B per row per coefficient row; L = 16, or
+    per element per window, 4L B per row per coefficient row; L limbs, or
     1 for M31) over the memory rate, and its word products
     (:func:`word_products`) over the IMAD.WIDE rate. The same work
     whatever kernel computes it. Beside it, this design's issue bound: the
@@ -502,17 +604,24 @@ def held_to_plain(kernel, plain, state, start, A):
     return err
 
 
-def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH):
-    """Phase 4, for the forms that take ``spec`` at its main shapes
-    (``sched``'s window, ``batch`` lanes). Returns {kind: stats};
-    max_abs_err is the largest over every comparison of that kernel; an
-    M31 form is also timed as the int64 PyTorch expression with ``%``
-    (``library_ms``)."""
+# the kernels phase 4 also holds on inputs that stress the word reduction
+WORD_EDGE_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade",
+                     "mulss")
+
+
+def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
+                          label="", small_only=False):
+    """Phase 4, for the form that takes ``spec`` at its main shapes
+    (``sched``'s window, ``batch`` lanes; none with ``small_only``).
+    Returns {kind: stats}; max_abs_err is the largest over every
+    comparison of that kernel; an M31 form is also timed as the int64
+    PyTorch expression with ``%`` (``library_ms``). ``label`` names the
+    form in the log."""
     W, A, bsx = sched.W, sched.A, sched.bs_max
     m31, nl = fd.is_m31(spec), spec.num_limbs
     res = {}
     for kind in KERNELS:
-        name = kind + "[m31]" * m31
+        name = kind + (f"[{label}]" if label else "")
         fused = kind.startswith("fused")
         err = 0
         # small shapes: edge and random values at B = 1 and 256
@@ -560,7 +669,9 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH):
                 log(f"{name} B={B} {'edge' if edge else 'random'}, x1 "
                     f"is x2: max |kernel - plain| = {e}")
         # the main paths' shapes
-        if kind == "fused_cascade":
+        if small_only:
+            mains = []
+        elif kind == "fused_cascade":
             start, halves, kinds = cascade_run
             mains = [(None, (tuple(halves), tuple(kinds)), start)]
         elif fused:  # one tile apart, and (A/4 = 16384) a quarter window
@@ -631,10 +742,10 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH):
             err = max(err, e)
             log(f"{name} one-lane row products (mul_rows) at ({bsx}, "
                 f"{nl}, 1): max |kernel - plain| = {e}")
-        if kind in WORD_KERNELS and not m31:
+        if kind in WORD_EDGE_KERNELS and spec is SPEC:
             err = max(err, word_edges(kind, gen))
         check(err == 0, f"{name} disagrees with its plain version")
-        res[kind]["max_abs_err"] = err
+        res.setdefault(kind, {})["max_abs_err"] = err
     return res
 
 
@@ -791,14 +902,16 @@ def pair_word_edges(kind, spec, tri, state, A, B, gen) -> int:
 
 
 def plain_vs_ints(kind, coeffs, state, x1, x2, start, spec=SPEC):
-    """The plain version of a step against python ints on 64 rows."""
+    """The plain version of a step against python ints on 64 rows (for
+    Montgomery residents each product is a Montgomery product, ·R⁻¹)."""
     p = spec.p
+    r = pow(spec.r, -1, p) if fd.is_mont(spec) else 1
     want = run_step(kind, coeffs, state.clone(), x1, x2, start, True, spec)
     want = want[start:]
     dec = fd.decode(spec, want[:64, :, 0])
     if not coeffs:  # the state x state product
         v1, v2 = (fd.decode(spec, x[:64, :, 0]) for x in (x1, x2))
-        check(all(dec[q] == v1[q] * v2[q] % p for q in range(64)),
+        check(all(dec[q] == v1[q] * v2[q] * r % p for q in range(64)),
               f"{kind} plain version vs ints")
         return
     cb = fd.decode(spec, coeffs[-1][:64])
@@ -807,9 +920,10 @@ def plain_vs_ints(kind, coeffs, state, x1, x2, start, spec=SPEC):
     sv = fd.decode(spec, (x1 if x1 is not None else state[start:])
                    [:64, :, 0])
     for q in range(64):
-        a = ca[q] if len(coeffs) == 2 else 1
-        check(dec[q] == (cb[q] * xv[q] + a * sv[q]) % p,
-              f"{kind} plain version vs ints")
+        two = len(coeffs) == 2
+        want_q = ((cb[q] * xv[q] + ca[q] * sv[q]) * r if two
+                  else cb[q] * xv[q] * r + sv[q])
+        check(dec[q] == want_q % p, f"{kind} plain version vs ints")
 
 
 # ---------------------------------------------------------- the analysis
@@ -962,10 +1076,11 @@ def degree_batch(tree, gen, rng, batch=BATCH):
     return tree.enter(coeffs), degs
 
 
-def other_algorithms(tree, nt, gen, batch=BATCH):
-    """Phase 8 (phase 9 for M31). Returns (the mulss launches of all its
-    gated calls, the launches of each kernel summed over its calls, rows
-    for the log's table)."""
+def other_algorithms(tree, nt, gen, batch=BATCH, only=None):
+    """Phase 8 (and 9 and 10 for the other fields): the six other
+    algorithms (``only``: the names of those to run). Returns (the
+    launches of each kernel summed over its gated calls, rows for the
+    log's table)."""
     S0, S1 = emit.S0, emit.S1
     rng = random.Random(8)
     N, spec = tree.n, tree.spec
@@ -1006,6 +1121,8 @@ def other_algorithms(tree, nt, gen, batch=BATCH):
     ]
     totals, rows = collections.Counter(), []
     for name, method, args, key, size, engine in algs:
+        if only is not None and name not in only:
+            continue
         x = rand_limbs((batch, size), gen, spec) if isinstance(size, int) \
             else size
         m = x.shape[1]
@@ -1096,44 +1213,51 @@ def print_table(rows, batch):
             f"{tput:.3f}")
 
 
-def m31_path(tree, nt, gen):
-    """Phase 9: M31 at n = 2^16, B = 2048 through all eight algorithms on
-    both executors, on the tree of phase 3b. Returns the M31 forms'
-    launches over its gated calls."""
+def field_path(tree, nt, gen, label, batch, phase, only=None):
+    """One field's main path on both executors, on a tree of phase 3b or
+    3c (phase 9: M31; phase 10: a general prime): ENTER of ``batch``
+    polynomials gated against the native engine with its EXIT round trip,
+    timed warm, the executors compared; then the six other algorithms, or
+    those named in ``only``. Every kernel of the field's form must launch.
+    Returns the form's launches over its gated calls."""
     totals = collections.Counter()
-    with Phase("9a M31: ENTER and its EXIT round trip on both executors"):
-        coeffs = rand_limbs((M31_BATCH, M31_N), gen, M31)
+    n = tree.n
+    with Phase(f"{phase}a {label}: ENTER and its EXIT round trip on both "
+               "executors"):
+        coeffs = rand_limbs((batch, n), gen, tree.spec)
         nt_out, outs = {}, {}
         for ex in ("scan", "unrolled"):
             os.environ.pop("ECFFT_EXECUTOR", None)
             if ex == "unrolled":
                 os.environ["ECFFT_EXECUTOR"] = "unrolled"
             outs[ex], enter, exit_ = gate(tree, coeffs, nt_out, nt,
-                                          f"M31 {ex}")
+                                          f"{label} {ex}")
             for alg, got in (("enter", enter), ("exit", exit_)):
-                sched, _, meta = tree._schedule(alg, M31_N)
-                check_counts(f"M31 {alg} ({ex})", got, sched,
+                sched, _, meta = tree._schedule(alg, n)
+                check_counts(f"{label} {alg} ({ex})", got, sched,
                              meta if ex == "unrolled" else None)
             totals.update(enter)
             totals.update(exit_)
-            timed_reps(tree, gen, f"M31 {ex}", M31_BATCH)
+            timed_reps(tree, gen, f"{label} {ex}", batch)
         check(torch.equal(outs["scan"], outs["unrolled"]),
-              "M31: the unrolled ENTER differs from the scan ENTER")
+              f"{label}: the unrolled ENTER differs from the scan ENTER")
         os.environ.pop("ECFFT_EXECUTOR", None)
         del outs, coeffs
         torch.cuda.empty_cache()
-    with Phase("9b M31: the six other algorithms, each on both executors"):
-        other, rows = other_algorithms(tree, nt, gen, M31_BATCH)
+    with Phase(f"{phase}b {label}: "
+               + ("the six other algorithms" if only is None
+                  else ", ".join(only)) + ", each on both executors"):
+        other, rows = other_algorithms(tree, nt, gen, batch, only)
         totals.update(other)
-        print_table(rows, M31_BATCH)
+        print_table(rows, batch)
     check(all(totals[k] > 0 for k in KERNELS),
-          f"an M31 form was not launched on the M31 path: {dict(totals)}")
-    log(f"M31 launches over phase 9: {dict(totals)}")
+          f"a {label} form was not launched on its path: {dict(totals)}")
+    log(f"{label} launches over phase {phase}: {dict(totals)}")
     return totals
 
 
 def main() -> int:
-    global SASS, M31_SASS, SM_CLOCKS
+    global SM_CLOCKS
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1171,32 +1295,36 @@ def main() -> int:
 
     with Phase("2 build"):
         t0 = time.perf_counter()
-        lib = step.load_kernels()
-        log(f"kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+        libs = _build.build_kernels(FORMS)
+        for form in FORMS:
+            step.load_kernels(form)
+        log(f"kernel forms {', '.join(FORMS)} built (one nvcc each, all "
+            f"at once) and loaded in {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
         native_library()
         log(f"native engine built in {time.perf_counter() - t0:.3f} s")
-        SASS, M31_SASS = kernel_sass(lib._name)
-        for spec, sass in ((SPEC, SASS), (M31, M31_SASS)):
-            tag = "[m31]" * fd.is_m31(spec)
+        for form in FORMS:
+            SASS[form] = kernel_sass(libs[form], form)
+            spec = FORM_SPEC[form]
+            nz, blocks = fold_nonzero(spec), max(words(spec), 1)
             for k in KERNELS:
                 if k != "fused_cascade":
-                    per = sass_count.thread_counts(sass[k], FOLD_ROUNDS,
-                                                   fold_nonzero(k, spec))
-                    log(f"{k}{tag}: one thread issues {per}")
-            nz = fold_nonzero("fused_cascade", spec)
-            base = sass_count.thread_counts(sass["fused_cascade"],
-                                            FOLD_ROUNDS, nz)
+                    per = sass_count.thread_counts(SASS[form][k], FOLD_ROUNDS,
+                                                   nz, (), blocks)
+                    log(f"{k}[{form}]: one thread issues {per}")
+            cas = SASS[form]["fused_cascade"]
+            base = sass_count.thread_counts(cas, FOLD_ROUNDS, nz, (), blocks)
             for kind in (0, 1):
-                one = sass_count.thread_counts(sass["fused_cascade"],
-                                               FOLD_ROUNDS, nz, [kind])
-                log(f"fused_cascade{tag}: one thread issues {base} outside "
-                    f"the levels, and per level of kind {kind} "
+                one = sass_count.thread_counts(cas, FOLD_ROUNDS, nz, [kind],
+                                               blocks)
+                log(f"fused_cascade[{form}]: one thread issues {base} "
+                    f"outside the levels, and per level of kind {kind} "
                     f"{ {x: one[x] - base[x] for x in one} }")
-        for line in kernel_resources(lib._name):
-            log(line)
+            for line in kernel_resources(libs[form], form):
+                log(line)
         for k in ("fused_bf1", "fused_bf2"):
-            ahead, loads = sass_count.loads_before_first_product(SASS[k])
+            ahead, loads = sass_count.loads_before_first_product(
+                SASS["fold16"][k])
             log(f"{k}: {ahead} of its {loads} device loads stand ahead of "
                 f"the first IMAD.WIDE.U32")
 
@@ -1238,12 +1366,47 @@ def main() -> int:
         run31 = max(analysis_counts(sched31, meta31)[1],
                     key=lambda r: len(r[1]))
         nt31 = NativeFFTree("m31", M31_N)
+    with Phase("3c the general prime: trees, pools, schedules and the "
+               "unrolled analysis"):
+        gtrees = {}
+        for label, (n, _, _) in PATHS.items():
+            t0 = time.perf_counter()
+            gtree = build_fftree_native(GSPEC[label], n, device=DEV).prepare()
+            os.environ["ECFFT_EXECUTOR"] = "unrolled"
+            gtree.prepare()
+            os.environ.pop("ECFFT_EXECUTOR")
+            gsched, _, gmeta = gtree._schedule("enter", n)
+            grun = max(analysis_counts(gsched, gmeta)[1],
+                       key=lambda r: len(r[1]))
+            gtrees[label] = (gtree, NativeFFTree(GSPEC[label], n), gsched,
+                             grun)
+            spec = GSPEC[label]
+            log(f"{label}: p = {spec.p:#x} ({spec.num_limbs} limbs, form "
+                f"{step.kernel_form(spec)}, slack "
+                f"{16 * spec.num_limbs - spec.p.bit_length()}); tree at n = "
+                f"{n}, pool ({gtree._pool.shape[0]} rows), schedules and "
+                f"analysis: {time.perf_counter() - t0:.3f} s")
 
     with Phase("4 kernels against their plain versions"):
         kstats = kernels_against_plain(gen, sched, cascade_run)
     with Phase("4b the M31 forms against their plain versions"):
         m31_stats = kernels_against_plain(gen, sched31, run31, M31,
-                                          M31_BATCH)
+                                          M31_BATCH, "m31")
+    with Phase("4c the general prime's forms against their plain versions"):
+        gstats = {}
+        for label, (_, batch, _) in PATHS.items():
+            if label == "stark":  # its form is held with cios16's
+                continue
+            _, _, gsched, grun = gtrees[label]
+            if label == "cios16":  # the STARK prime at the full width
+                gstats[label] = kernels_against_plain(
+                    gen, gsched, grun, GSPEC["stark"], batch, "cios16 stark")
+                kernels_against_plain(gen, gsched, grun, GSPEC[label], batch,
+                                      "cios16 slack 0", small_only=True)
+            else:
+                gstats[label] = kernels_against_plain(
+                    gen, gsched, grun, GSPEC[label], batch, label)
+            torch.cuda.empty_cache()
 
     with Phase("5 native single-core ENTER baseline"):
         nt = NativeFFTree(FIELD, N)
@@ -1315,7 +1478,18 @@ def main() -> int:
     del tree, nt
     torch.cuda.empty_cache()
 
-    m31_launches = m31_path(tree31, nt31, gen)
+    m31_launches = field_path(tree31, nt31, gen, "M31", M31_BATCH, 9)
+    del tree31, nt31
+    torch.cuda.empty_cache()
+
+    glaunches = {}
+    for label, (_, batch, what) in PATHS.items():
+        gtree, gnt, _, _ = gtrees.pop(label)
+        glaunches[label] = field_path(
+            gtree, gnt, gen, label, batch, 10,
+            None if what == "all" else ("VANISH",))
+        del gtree, gnt
+        torch.cuda.empty_cache()
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
@@ -1327,6 +1501,13 @@ def main() -> int:
         kernels.append({"name": f"{k}[m31]", "route": "cuda",
                         "source": M31_SRC, "replaces": replaces,
                         "launches": m31_launches[k], **m31_stats[k]})
+    for label, stats in gstats.items():
+        for k, (src, replaces) in KERNELS.items():
+            launches = glaunches[label][k] + (
+                glaunches["stark"][k] if label == "cios16" else 0)
+            kernels.append({"name": f"{k}[{label}]", "route": "cuda",
+                            "source": src, "replaces": replaces,
+                            "launches": launches, **stats[k]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

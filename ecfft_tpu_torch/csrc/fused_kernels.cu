@@ -1,7 +1,9 @@
 // The unrolled executor's fused butterfly levels, for Hopper (sm_90a).
 //
 // Each kernel updates the window [start, start + A) of a (W, L, B) int32
-// state of 16-bit limbs in place, pairing row t with row t ^ h:
+// state of L = NL 16-bit limbs in place, in the form this library is
+// compiled for (word_arith.cuh: the fold or the CIOS form), pairing row t
+// with row t ^ h:
 //
 //   ecfft_fused_bf1      x[t] <- x[t] + C[t]*x[t^h]          one level,
 //                        h >= TW; replaces _fused_bf1
@@ -13,17 +15,18 @@
 //                        (unrolled.py:200)
 //
 // with (A, L) coefficient rows per level indexed by the window row t -
-// start. All three run on word_arith.cuh's field arithmetic (32-bit words).
+// start. All three run on word_arith.cuh's field arithmetic (NW 32-bit
+// words an element).
 //
 // What bounds it on the H100. A pair level reads each window row once and
-// writes it once: 128 bytes per element, 2.15 GB at (A 65536, B 256), 0.64
-// ms at 3.35 TB/s, against about 0.1 ms of word products: bound by the
-// bytes. A cascade moves the same 128 bytes per element once for the whole
-// run, plus 64 bytes of coefficients per row and level, and needs a 1-mul
-// (2-mul) level's 64 (128) word products and about 20 more for the fold
-// per element and level: 14 levels are about 1.2 ms of word products at
-// the IMAD.WIDE rate against 0.66 ms of bytes, so its function is bound
-// by the operations. A design issues several instructions per word
+// writes it once: 8 L bytes per element, 2.15 GB at (A 65536, B 256, L
+// 16), 0.64 ms at 3.35 TB/s, against about 0.1 ms of word products: bound
+// by the bytes. A cascade moves the same 8 L bytes per element once for the
+// whole run, plus 4 L bytes of coefficients per row and level, and needs a
+// 1-mul (2-mul) level's NW^2 (2 NW^2) word products and the reduction's
+// per element and level: at L 16, 14 levels are about 1.2 ms of word
+// products at the IMAD.WIDE rate against 0.66 ms of bytes, so its function
+// is bound by the operations. A design issues several instructions per word
 // product (the carries, the fold, shared memory), so in practice a
 // cascade runs well above that bound, limited by the issue rate.
 //
@@ -35,9 +38,9 @@
 // lanes (lanes the smallest power of two >= B, at most BF_SIDE = 64):
 // threads [0, 64) the rows t, threads [64, 128) their partners t ^ h, so a
 // warp lies on one side and its limb loads are coalesced across lanes. A
-// thread issues all its loads (the 16 limbs of its element and of its one
+// thread issues all its loads (the L limbs of its element and of its one
 // or two coefficient rows, the rows a broadcast to the lanes) before the
-// first multiply, packs them into words, and writes its element's 8 words
+// first multiply, packs them into words, and writes its element's NW words
 // to shared memory, word k of thread i at [k][i]: a warp's 32 threads fall
 // on 32 banks, storing and reading the partner's (thread i ^ 64) alike.
 // After the block's one barrier it reads its partner's words, computes its
@@ -57,12 +60,15 @@
 // it is written and from overwriting a row still being read. Each level's
 // coefficient rows come from device memory (a broadcast to the lanes of a
 // row), loaded and packed before the barrier that precedes the level, so
-// the loads overlap the wait. A tile row is RS = 36 words: a warp's 8 rows
-// x 4 lanes fall on 32 distinct banks, for its own rows and for the rows
-// r ^ h alike. 2 x 128 x 36 x 4 = 36,864 bytes of shared memory and at
-// most 64 registers a thread: two blocks (32 warps) per SM, at the price of
-// a few spilled words, which cost less than the warps a larger register
-// budget would take away (PERF.md, findings).
+// the loads overlap the wait. A tile row is RS = CL x (NW | 1) words, 4
+// times an odd number: a warp's 8 rows x 4 lanes fall on 32 distinct banks
+// (8 rows at an odd multiple of 4 words apart cover the 8 groups of 4
+// banks), for its own rows and for the rows r ^ h alike; NW = 8 pads to 36
+// words, NW = 7 needs no pad. 2 x 128 x RS x 4 bytes of shared memory
+// (36,864 at NW 8, 12,288 at NW 2) and at most 64 registers a thread: two
+// blocks (32 warps) per SM at NW 8, at the price of a few spilled words,
+// which cost less than the warps a larger register budget would take away
+// (PERF.md, findings); at NW 2 the threads (four blocks) are the limit.
 //
 // The kernels allocate nothing and launch on the caller's stream; each
 // launcher returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -78,11 +84,11 @@ constexpr int BF_SIDE = BF_THREADS / 2;    // elements of each side of the pairs
 constexpr int CL = 4;                      // lanes per cascade block
 constexpr int MAX_TW = 128;                // largest cascade tile
 constexpr int CT = MAX_TW * CL;            // cascade threads: one an element
-constexpr int RS = NW * CL + CL;           // shared words per tile row
+constexpr int RS = CL * (NW | 1);          // shared words per tile row
 
 namespace {
 
-// One coefficient row's 16 limbs, through the read-only path
+// One coefficient row's NL limbs, through the read-only path
 __device__ __forceinline__ void ldg_row(const int32_t* __restrict__ row,
                                         uint32_t (&l)[NL]) {
 #pragma unroll
@@ -116,23 +122,22 @@ pair_kernel(Field fd, const int32_t* __restrict__ aw,
       lx[j] = static_cast<uint32_t>(el[static_cast<int64_t>(j) * B]);
     ldg_row(cw + q * NL, lc);
     if (TWO) ldg_row(aw + q * NL, la);
-    wa::pack(lx, x);
-    wa::pack(lc, c);
-    if (TWO) wa::pack(la, a);
+    wa::pack<NL>(lx, x);
+    wa::pack<NL>(lc, c);
+    if (TWO) wa::pack<NL>(la, a);
 #pragma unroll
     for (int k = 0; k < NW; ++k) xs[k * BF_THREADS + tid] = x[k];
   }
   __syncthreads();
   if (!live) return;
-  uint32_t xp[NW], v[NV];
+  uint32_t xp[NW];
 #pragma unroll
   for (int k = 0; k < NW; ++k) xp[k] = xs[k * BF_THREADS + (tid ^ BF_SIDE)];
   if (TWO)
-    wa::mul_add2(a, x, c, xp, v);
+    wa::fma2<NL, MONT>(fd, a, x, c, xp, x);
   else
-    wa::mul_add(c, xp, x, v);
-  wa::reduce(fd, v, x);
-  wa::store_words(el, B, x);
+    wa::fma1<NL, MONT>(fd, c, xp, x, x);
+  wa::store_words<NL>(el, B, x);
 }
 
 // The coefficient rows of level li for window row q: C (and A, for a
@@ -145,10 +150,10 @@ __device__ __forceinline__ void level_rows(const Levels& lv, int li, int ai,
                                            uint32_t (&a)[NW]) {
   uint32_t l[NL];
   ldg_row(cw + (static_cast<int64_t>(li) * A + q) * NL, l);
-  wa::pack(l, c);
+  wa::pack<NL>(l, c);
   if (lv.kind[li]) {
     ldg_row(aw + (static_cast<int64_t>(ai) * A + q) * NL, l);
-    wa::pack(l, a);
+    wa::pack<NL>(l, a);
   }
 }
 
@@ -168,7 +173,7 @@ cascade_kernel(Field fd, Levels lv, const int32_t* __restrict__ cw,
   uint32_t c[NW], a[NW];
   if (live) {
     uint32_t x[NW];
-    wa::load_words(el, B, x);
+    wa::load_words<NL>(el, B, x);
 #pragma unroll
     for (int k = 0; k < NW; ++k) tile[0][r * RS + k * CL + l] = x[k];
     level_rows(lv, 0, 0, cw, aw, q, A, c, a);
@@ -180,17 +185,16 @@ cascade_kernel(Field fd, Levels lv, const int32_t* __restrict__ cw,
     if (live) {
       const uint32_t* t = tile[cur];
       const int rp = r ^ lv.half[li];
-      uint32_t x[NW], xp[NW], v[NV];
+      uint32_t x[NW], xp[NW];
 #pragma unroll
       for (int k = 0; k < NW; ++k) {
         x[k] = t[r * RS + k * CL + l];
         xp[k] = t[rp * RS + k * CL + l];
       }
       if (two)
-        wa::mul_add2(a, x, c, xp, v);
+        wa::fma2<NL, MONT>(fd, a, x, c, xp, x);
       else
-        wa::mul_add(c, xp, x, v);
-      wa::reduce(fd, v, x);
+        wa::fma1<NL, MONT>(fd, c, xp, x, x);
 #pragma unroll
       for (int k = 0; k < NW; ++k) tile[cur ^ 1][r * RS + k * CL + l] = x[k];
     }
@@ -203,7 +207,7 @@ cascade_kernel(Field fd, Levels lv, const int32_t* __restrict__ cw,
     uint32_t x[NW];
 #pragma unroll
     for (int k = 0; k < NW; ++k) x[k] = tile[cur][r * RS + k * CL + l];
-    wa::store_words(el, B, x);
+    wa::store_words<NL>(el, B, x);
   }
 }
 
@@ -211,7 +215,8 @@ template <bool TWO>
 int launch_bf(const Field* fd, const int32_t* a, const int32_t* c,
               int32_t* state, int start, int half, int A, int B,
               void* stream) {
-  if (half <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (half <= 0 || fd->nw != NW || fd->mont != MONT)
+    return static_cast<int>(cudaErrorInvalidValue);
   int lg = 0;  // lanes a block: the smallest power of two >= B, <= BF_SIDE
   while ((1 << lg) < B && (1 << lg) < BF_SIDE) ++lg;
   const int pairs = BF_SIDE >> lg;                  // pairs a block
@@ -242,7 +247,7 @@ int ecfft_fused_cascade(const Field* fd, const Levels* lv, const int32_t* c,
                         const int32_t* a, int32_t* state, int start, int tw,
                         int A, int B, void* stream) {
   if (lv->k < 1 || lv->k > MAX_LEVELS || tw < 2 || tw > MAX_TW ||
-      A % tw != 0)
+      A % tw != 0 || fd->nw != NW || fd->mont != MONT)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks =
       static_cast<int64_t>(A / tw) * ((B + CL - 1) / CL);

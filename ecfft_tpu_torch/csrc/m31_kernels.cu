@@ -2,8 +2,9 @@
 //
 // The state is (W, 1, B) int32: one canonical 32-bit word an element, the
 // lanes of a row contiguous. Each entry point takes the arguments of its
-// 16-limb sibling (step_kernels.cu, fused_kernels.cu) without the field's
-// constants, since p is a compile-time constant here (m31_arith.cuh):
+// sibling in the word forms (step_kernels.cu, fused_kernels.cu) without
+// the field's constants, since p is a compile-time constant here
+// (m31_arith.cuh):
 //
 //   ecfft_m31_aff1s_ip  state[s+q] <- state[s+q] + C[q]*x2[q]   replaces
 //                       pallas_aff1s_ip (ecfft_tpu/ops/pallas_step.py:299)
@@ -287,6 +288,10 @@ int ecfft_m31_fused_cascade(const Levels* lv, const int32_t* c,
                        static_cast<cudaStream_t>(stream)>>>(
       *lv, c, a, state, start, tw, A, B);
   return static_cast<int>(cudaGetLastError());
+}
+
+const char* ecfft_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -2,20 +2,25 @@
 
 The port's counterpart of ``ecfft_tpu/fftree.py``: ENTER (coefficients →
 evaluations), EXIT (evaluations → coefficients), EXTEND, MEXTEND, DEGREE,
-REDC, MOD and VANISH on the schedule machine, over M31 and fold-friendly
-16-bit-limb fields such as secp256k1 (on the card: M31 and 16-limb
-primes, see ``ops.step.kernel_form``). The methods carry the JAX
-package's names and arguments; its ``*_unscheduled`` cross-validation
-forms are not ported.
+REDC, MOD and VANISH on the schedule machine, over any odd prime below
+2^256 the JAX package runs, on the card and on the CPU alike: M31, primes
+of 2 to 16 limbs of 16 bits with a pseudo-Mersenne fold (secp256k1,
+2^255 − 19, M61 = 2^61 − 1, 2^256 − 1053), and every other such prime in
+Montgomery form with CIOS reduction (the STARK prime, a fresh prime from
+``fields.registry.field_from_curve_search``); see
+``ops.step.kernel_form``. Only a prime below 2^16 other than M31 is
+refused. The methods carry the JAX package's names and arguments; its
+``*_unscheduled`` cross-validation forms are not ported.
 
 The tables (``{m: {name: (rows, L) int32, "mats": [...]}}``, the JAX
 package's layout) stay on the CPU: they feed only the coefficient pool,
 which is built there once (:meth:`FFTree.prepare`) and then moved to the
 tree's device with the schedules' residual banks. Batches are (..., n, L)
-int32 tensors on that device (L = 16 limbs of 16 bits, or M31's one
-32-bit limb): the card (``"cuda"``) unless the caller names another.
-Constructing a tree touches no device; for the card it refuses a field
-that no kernel takes.
+int32 tensors on that device (L limbs of 16 bits, or M31's one 32-bit
+limb) of canonical values: the card (``"cuda"``) unless the caller names
+another. Constructing a tree touches no device. With Montgomery residents
+the pool is converted once, when it is built, and each call's state on
+the way in and out (``ops/schedule.py::run_chunks``).
 
 ``ECFFT_EXECUTOR=unrolled`` runs the transforms on the unrolled executor
 (``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
@@ -101,10 +106,17 @@ class FFTree:
 
     def _ensure_pool(self) -> None:
         """Build the coefficient pool (on the CPU, then moved to the
-        device) once."""
+        device) once; with Montgomery residents it is converted there, one
+        row product by R² mod p per row (a kernel launch on the card), as
+        the JAX package converts it once per call chain
+        (``_pool_to_mont``)."""
         if self._pool is None:
             pool, self._pool_off = build_pool(self.spec, self.tables)
-            self._pool = pool.to(self.device)
+            pool = pool.to(self.device)
+            if fd.is_mont(self.spec):
+                r2 = fd.encode(self.spec, self.spec.r2_mod_p, self.device)
+                pool = step.mul_rows(self.spec, r2.expand_as(pool), pool)
+            self._pool = pool
 
     def prepare(self, sizes: tuple | None = None) -> "FFTree":
         """Build the coefficient pool and the ENTER/EXIT schedules for
@@ -189,7 +201,8 @@ class FFTree:
         tree's device (fftree.rs:195-198). OP_CMPSEL steps take the
         reference's data-dependent branch per batch lane; the accumulator
         rides the state as a field element and its first limbs (two, or
-        M31's one) are decoded here."""
+        M31's one) are decoded here, after the state has left Montgomery
+        form where it was in it."""
         n = evals.shape[-2]
         if n == 1:
             self._size_check(n)
@@ -248,8 +261,9 @@ class FFTree:
 
 
 def _check_field(spec: FieldSpec, device: torch.device) -> None:
-    """Refuse a field the port cannot compute in: on any device one the
-    plain arithmetic lacks, on the card also one that no kernel takes."""
+    """Refuse a field the port cannot compute in (a prime below 2^16 other
+    than M31), naming the cause; on the card also one no kernel form
+    takes (``ops.step.kernel_form``)."""
     fd.check_fold(spec)
     if device.type == "cuda":
         step.kernel_form(spec)

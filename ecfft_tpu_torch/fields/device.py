@@ -16,6 +16,10 @@ The column functions mirror the XLA step pipeline of
 ``_normalize_cols`` → ``_reduce_cols``) on the (..., columns, B) layout,
 producing the same column values; only the carry normalization differs
 (a serial ripple here, a carry-lookahead scan there), and both are exact.
+A prime without a pseudo-Mersenne fold keeps its residents in Montgomery
+form (value·R, R = 2^(16L)), as the JAX package does: its products reduce
+by ``_mont_reduce_cols`` (CIOS), and :func:`mul` gives the canonical
+product of canonical values.
 """
 
 from __future__ import annotations
@@ -157,6 +161,18 @@ def _sub_comps(spec: FieldSpec, js) -> list:
              for i in range(W1)] for j in js]
 
 
+def _cond_sub(spec: FieldSpec, x, js):
+    """Canonical (..., L + 1, B) limbs: subtract p·2^j where it fits, for
+    each j of ``js`` in turn; returns the low L limbs."""
+    L = spec.num_limbs
+    for comp in _sub_comps(spec, js):
+        comp = torch.tensor(comp, dtype=torch.int64, device=x.device)
+        y = _normalize_cols(x + comp[:, None])
+        need = y[..., L + 1:L + 2, :] > 0
+        x = torch.where(need, y[..., :L + 1, :], x)
+    return x[..., :L, :]
+
+
 def _reduce_cols(spec: FieldSpec, c):
     """Product columns (..., 2L, B) → canonical value (..., L, B): fold,
     normalize (twice), then subtract p·2^j where it fits, j from the slack
@@ -166,38 +182,87 @@ def _reduce_cols(spec: FieldSpec, c):
     c = _normalize_cols(_fold_cols(spec, c))
     slack = 16 * L - spec.p.bit_length()
     js = [0] if slack == 0 else list(range(slack + 1, -1, -1))
-    x = c[..., :L + 1, :]
-    for comp in _sub_comps(spec, js):
-        comp = torch.tensor(comp, dtype=torch.int64, device=c.device)
-        y = _normalize_cols(x + comp[:, None])
-        need = y[..., L + 1:L + 2, :] > 0
-        x = torch.where(need, y[..., :L + 1, :], x)
-    return x[..., :L, :]
+    return _cond_sub(spec, c[..., :L + 1, :], js)
+
+
+def is_mont(spec: FieldSpec) -> bool:
+    """Whether the port keeps ``spec``'s residents in Montgomery form: a
+    prime of more than one limb without a pseudo-Mersenne fold, as the JAX
+    package decides (``ecfft_tpu/ops/schedule.py``, ``_pack_state``)."""
+    return spec.num_limbs > 1 and spec.fold_terms is None
+
+
+def _mont_reduce_cols(spec: FieldSpec, c):
+    """Word-serial Montgomery reduction (CIOS) of product columns
+    (..., w, B), w ≤ 2L + 1 (the columns of one product or a sum of two
+    products of canonical values) → canonical value·R⁻¹ (..., L, B): L
+    rounds of m = c₀·n′ mod 2^16, c += m·p, a one-column shift, as the JAX
+    package's ``_mont_reduce_cols``; int64 holds every column exactly. The
+    result (V + M·p)/R with V < 2p² and M < R is below 2p²/R + p < 3p, so
+    subtracting 2p and then p where they fit leaves it canonical."""
+    L = spec.num_limbs
+    n_prime = spec.n_prime
+    p_limbs = spec.to_limbs(spec.p)
+    cols = [c[..., i, :].long() for i in range(c.shape[-2])]
+    cols += [torch.zeros_like(cols[0]) for _ in range(2 * L + 1 - len(cols))]
+    for _ in range(L):
+        m = (cols[0] * n_prime) & LIMB_MASK
+        for i in range(L):
+            prod = m * p_limbs[i]
+            cols[i] = cols[i] + (prod & LIMB_MASK)
+            cols[i + 1] = cols[i + 1] + (prod >> 16)
+        carry = cols[0] >> 16  # the low 16 bits are exactly zero now
+        cols = cols[1:]
+        cols[0] = cols[0] + carry
+    x = _normalize_cols(torch.stack(cols[:L + 1], dim=-2))[..., :L + 1, :]
+    return _cond_sub(spec, x, (1, 0))
+
+
+def _add_canon(spec: FieldSpec, a, b):
+    """Canonical (..., L, B) + (..., L, B) mod p: one conditional subtract
+    (the JAX package's ``_add_canon``)."""
+    x = _normalize_cols(a.long() + b.long())
+    return _cond_sub(spec, x, (0,))
+
+
+def _mont_mul_cols(spec: FieldSpec, a, x):
+    """The Montgomery product a·x·R⁻¹ mod p of canonical (..., L, 1|B)
+    and (..., L, B) limbs."""
+    return _mont_reduce_cols(spec, _conv_cols(spec, a, x))
 
 
 def check_fold(spec: FieldSpec) -> None:
-    """Raise NotImplementedError for a field the port cannot reduce yet:
-    M31 and the fold-friendly 16-bit-limb primes are covered."""
-    if is_m31(spec):
-        return
-    if spec.num_limbs == 1 or spec.fold_terms is None:
+    """Raise NotImplementedError for a field the port cannot compute in: a
+    prime below 2^16 other than M31 (one 16-bit limb, which the JAX package
+    reduces with neither a Pallas kernel nor Montgomery residents). Every
+    other odd prime runs: M31, a prime with a pseudo-Mersenne fold
+    (canonical residents), any other (Montgomery residents)."""
+    if spec.num_limbs == 1 and not is_m31(spec):
         raise NotImplementedError(
-            f"{spec.name}: the port's arithmetic covers M31 and "
-            "fold-friendly 16-bit-limb primes; a prime without a "
-            "pseudo-Mersenne fold needs the CIOS Montgomery branch, still "
-            "to be ported (ROADMAP.md, Queue 2)")
+            f"{spec.name}: a prime of one 16-bit limb is not taken (M31 is "
+            "the one one-limb field: its limb is a 32-bit word); the JAX "
+            "package takes it to no Pallas kernel (ROADMAP.md)")
 
 
 # --------------------------------------------------------- field ops
 
 
 def mul(spec: FieldSpec, a, b) -> torch.Tensor:
-    """Elementwise field product of (..., L) int32 tensors."""
+    """Elementwise field product of canonical (..., L) int32 tensors,
+    canonical. A prime without a fold takes two Montgomery products, the
+    second by R² mod p to cancel the first's R⁻¹ (the JAX package's
+    ``_mont_mul_scan``)."""
     check_fold(spec)
     if is_m31(spec):
         return _m31_mul(a, b).int()
-    c = _conv_cols(spec, a.unsqueeze(-1), b.unsqueeze(-1))
-    return _reduce_cols(spec, c)[..., 0].int()
+    a, b = a.unsqueeze(-1), b.unsqueeze(-1)
+    if is_mont(spec):
+        r2 = torch.tensor(spec.to_limbs(spec.r2_mod_p), dtype=torch.int64,
+                          device=a.device)[:, None]
+        return _mont_mul_cols(spec, r2, _mont_mul_cols(spec, a, b))[
+            ..., 0].int()
+    return _reduce_cols(spec, _conv_cols(spec, a, b))[..., 0].int()
+
 
 
 def neg(spec: FieldSpec, a) -> torch.Tensor:

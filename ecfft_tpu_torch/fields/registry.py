@@ -1,8 +1,10 @@
 """Field instantiations: the API surface the reference exposes per field.
 
 A jax-free copy of ``ecfft_tpu/fields/registry.py`` (every class and
-function here has its original's source, tested). Left out: the curve
-search ``field_from_curve_search``, which is not on the port's path.
+function here has its original's source, tested), the curve search
+``field_from_curve_search`` included: FIND_CURVE (the native engine's, or
+``ecfft_tpu_torch.find_curve``'s python search), then ``register_field``,
+takes a fresh prime to ``build_fftree``.
 
 Each supported field carries hardcoded curve constants and knows how to
 produce the FFTree ingredients (leaf evaluation domain + isogeny x-map
@@ -180,6 +182,51 @@ def register_field(name: str, p: int, curve_a: int, curve_bb: int,
     FIELDS[name] = spec
     CUSTOM_DOMAINS[name] = (curve, coset, gen, two_adicity)
     return spec
+
+
+def field_from_curve_search(name: str, p: int, k: int, rng=None) -> FieldSpec:
+    """FIND_CURVE → registered field, end to end: search for a good curve
+    with 2-adicity ≥ k over F_p (find_curve.rs:224-246), derive a coset
+    offset disjoint from the subgroup, and register the field for
+    ``build_fftree``. This is the reference's offline workflow ("humans
+    hardcode the found constants", SURVEY §1 layer 5) automated."""
+    import random as _random
+
+    from ecfft_tpu_torch.fields.host import legendre, sqrt_mod
+    from ecfft_tpu_torch.find_curve import find_curve
+
+    rng = rng or _random.Random()
+    try:
+        # native search is ~1000× the python loop — practical for
+        # 256-bit primes and double-digit k
+        from ecfft_tpu_torch.native import find_curve_native
+
+        res = find_curve_native(p, k, seed=rng.randrange(1, 1 << 63))
+    except Exception:
+        res = None
+    if res is not None:
+        n_adic, a, bb, gx, gy = res
+        gen = Point(gx, gy, GoodCurve.new_odd(a, bb, p))
+    else:
+        n_adic, gen = find_curve(p, k, rng)
+    curve = gen.curve
+    a, b = curve.a, curve.b
+    bb = b * b % p
+    # coset offset: any rational point outside the 2-Sylow generator's
+    # subgroup — accept Q iff 2^n·Q ≠ 0 (Q in <gen> would have 2-power
+    # order dividing 2^n)
+    while True:
+        x = rng.randrange(p)
+        yy = x * (x * x + a * x + bb) % p
+        if yy == 0 or legendre(yy, p) != 1:
+            continue
+        q = Point(x, sqrt_mod(yy, p), curve)
+        acc = q
+        for _ in range(n_adic):
+            acc = acc.double()
+        if not acc.is_zero():
+            break
+    return register_field(name, p, a, bb, (gen.x, gen.y), (q.x, q.y), n_adic)
 
 
 def build_domain(spec: FieldSpec, n: int) -> tuple[list[int], list[RationalMap]] | None:

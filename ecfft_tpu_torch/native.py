@@ -4,7 +4,9 @@ The port's counterpart of ``ecfft_tpu/native.py``, bound to the same
 source, which ``ops._build.native_library`` compiles into the port's own
 build directory. The engine is the port's independent single-core oracle
 (4×64 Montgomery arithmetic), the baseline that ``chip_smoke.py`` measures,
-and the FFTree builder (:func:`build_tables_native`).
+the FFTree builder (:func:`build_tables_native`) and FIND_CURVE's search
+for a fresh prime's curve (:func:`find_curve_native`,
+:func:`find_curve_parallel`, with the source of their originals).
 
 All boundary values are 32-byte little-endian canonical integers.
 """
@@ -63,6 +65,11 @@ def lib() -> ctypes.CDLL:
         so.ecn_batch_inv.restype = None
         so.ecn_batch_inv.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                      ctypes.c_uint64, ctypes.c_char_p]
+        so.ecn_find_curve.restype = ctypes.c_uint64
+        so.ecn_find_curve.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                      ctypes.c_uint64, ctypes.c_uint64,
+                                      ctypes.c_char_p, ctypes.c_char_p,
+                                      ctypes.c_char_p, ctypes.c_char_p]
         _lib = so
     return _lib
 
@@ -220,3 +227,51 @@ def build_tables_native(field: str | FieldSpec, n: int) -> dict | None:
         tables[m] = t
         m *= 2
     return tables
+
+
+def find_curve_parallel(p: int, k: int, threads: int = 10,
+                        seed: int = 1, chunk: int = 20000):
+    """Race ``threads`` native searches with distinct seeds and return the
+    first hit — the reference's rayon fan-out example
+    (examples/find_curve.rs:11-36) on top of the C++ engine. Each thread
+    searches in finite chunks (ctypes releases the GIL during the C call)
+    and stops once any thread has found a curve."""
+    import concurrent.futures as cf
+    import threading
+
+    found: list = []
+    lock = threading.Lock()
+
+    def worker(t: int):
+        s = seed + 1000003 * t
+        while True:
+            with lock:
+                if found:
+                    return None
+            r = find_curve_native(p, k, s, chunk)
+            if r is not None:
+                with lock:
+                    found.append(r)
+                return r
+            s += 777767777
+
+    with cf.ThreadPoolExecutor(max_workers=threads) as ex:
+        futs = [ex.submit(worker, t) for t in range(threads)]
+        for f in cf.as_completed(futs):
+            pass
+    return max(found, key=lambda r: r[0]) if found else None
+
+
+def find_curve_native(p: int, k: int, seed: int = 1,
+                      max_iters: int = 0):
+    """Native FIND_CURVE (find_curve.rs:224-246 at C++ speed): returns
+    (n, a, B, gen_x, gen_y) with n ≥ k the 2-adicity of the cyclic
+    2-Sylow generator, or None if max_iters exhausted. ~1000× the python
+    search throughput — practical for 256-bit primes and larger k."""
+    bufs = [ctypes.create_string_buffer(32) for _ in range(4)]
+    n = lib().ecn_find_curve(p.to_bytes(32, "little"), k, seed, max_iters,
+                             *bufs)
+    if n == 0:
+        return None
+    a, bb, x, y = (int.from_bytes(b.raw, "little") for b in bufs)
+    return int(n), a, bb, x, y

@@ -1,44 +1,53 @@
 """Builds the port's native code at first use, into ``ecfft_tpu_torch/_build``.
 
-Two libraries, each with a plain C interface opened through ctypes:
+Two kinds of library, each with a plain C interface opened through ctypes:
 
-- the kernels, from ``csrc/step_kernels.cu`` (which includes
-  ``csrc/field_arith.cuh`` and ``csrc/word_arith.cuh``),
-  ``csrc/fused_kernels.cu`` (``csrc/levels.cuh``, ``csrc/word_arith.cuh``)
-  and ``csrc/m31_kernels.cu`` (``csrc/levels.cuh``,
-  ``csrc/m31_arith.cuh``), for Hopper (``sm_90a``),
-  with ``torch.utils.cpp_extension.load`` (one call, all sources, which
-  tracks the header through nvcc's dependency files) where ``ninja`` is
-  installed, else with ``nvcc`` directly. The sources include no PyTorch
-  header, so either way the build takes seconds. This runs only where a
-  CUDA tensor reaches a kernel's wrapper: no card, no build.
+- the kernels, one library per form (``ops/step.py::kernel_form``), for
+  Hopper (``sm_90a``) with ``nvcc``:
+
+  - a word form ("fold16", "cios3", ...: the fold or the CIOS reduction at
+    a limb count) from ``csrc/step_kernels.cu`` and
+    ``csrc/fused_kernels.cu`` (``csrc/word_arith.cuh``,
+    ``csrc/levels.cuh``), compiled with ``-DECFFT_NL=<limbs>
+    -DECFFT_MONT=<0|1>``: ``libecfft_<form>.so``;
+  - the M31 form from ``csrc/m31_kernels.cu`` (``csrc/levels.cuh``,
+    ``csrc/m31_arith.cuh``): ``libecfft_m31.so``.
+
+  The sources include no PyTorch header, so a form builds in seconds. A
+  form is built where a CUDA tensor of its field first reaches a kernel's
+  wrapper (no card, no build), the counterpart of the JAX package's
+  per-field ``jit``; :func:`build_kernels` builds several at once, one
+  ``nvcc`` each, all started together.
 - the native C++ engine, from the unchanged ``native/ecfft_native.cpp``,
   with ``g++``.
 
 A library is rebuilt when it is missing or older than its sources or
-headers. Each
-build writes a temporary file and moves it into place with ``os.replace``,
-so processes that build at once never load a half-written library. A
-failed build raises; nothing falls back.
+headers. Each build writes a temporary file and moves it into place with
+``os.replace``, so processes that build at once never load a half-written
+library. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNEL_SOURCES = [os.path.join(_PKG, "csrc", f)
-                  for f in ("step_kernels.cu", "fused_kernels.cu",
-                            "m31_kernels.cu")]
-KERNEL_HEADERS = [os.path.join(_PKG, "csrc", f)
-                  for f in ("field_arith.cuh", "word_arith.cuh",
-                            "m31_arith.cuh", "levels.cuh")]
+_CSRC = os.path.join(_PKG, "csrc")
+# the word forms' sources, and the M31 form's
+KERNEL_SOURCES = [os.path.join(_CSRC, f)
+                  for f in ("step_kernels.cu", "fused_kernels.cu")]
+M31_SOURCES = [os.path.join(_CSRC, "m31_kernels.cu")]
+KERNEL_HEADERS = [os.path.join(_CSRC, f)
+                  for f in ("word_arith.cuh", "m31_arith.cuh", "levels.cuh")]
 NATIVE_SOURCE = os.path.join(os.path.dirname(_PKG), "native",
                              "ecfft_native.cpp")
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+_WORD_FORM = re.compile(r"^(fold|cios)(\d+)$")
 
 
 def _stale(out: str, sources: list) -> bool:
@@ -71,24 +80,35 @@ def native_library() -> str:
     return out
 
 
-def kernel_library() -> str:
-    """Path of the kernels' shared library, built if stale."""
+def form_sources(form: str) -> tuple[list, list]:
+    """(sources, extra nvcc flags) of a form's library."""
+    if form == "m31":
+        return M31_SOURCES, []
+    m = _WORD_FORM.match(form)
+    if m is None or not 2 <= int(m.group(2)) <= 16:
+        raise ValueError(f"no kernel form {form!r}")
+    return KERNEL_SOURCES, [f"-DECFFT_NL={int(m.group(2))}",
+                            f"-DECFFT_MONT={int(m.group(1) == 'cios')}"]
+
+
+def kernel_library(form: str = "fold16") -> str:
+    """Path of the kernels' library of ``form``, built if stale."""
     from torch.utils import cpp_extension
 
-    if cpp_extension.is_ninja_available():
-        kdir = os.path.join(BUILD_DIR, "kernels")
-        os.makedirs(kdir, exist_ok=True)
-        name = "ecfft_kernels"
-        cpp_extension.load(
-            name=name, sources=KERNEL_SOURCES, build_directory=kdir,
-            extra_cuda_cflags=["-O3", CUDA_ARCH], is_python_module=False,
-            verbose=False)
-        return os.path.join(kdir, f"{name}.so")
-    out = os.path.join(BUILD_DIR, "libecfft_kernels.so")
-    if _stale(out, KERNEL_SOURCES + KERNEL_HEADERS):
+    sources, flags = form_sources(form)
+    out = os.path.join(BUILD_DIR, f"libecfft_{form}.so")
+    if _stale(out, sources + KERNEL_HEADERS):
         nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda",
                             "bin", "nvcc")
         _compile(lambda o: [nvcc, CUDA_ARCH, "-std=c++17", "-O3", "-shared",
-                            "-Xcompiler", "-fPIC", "-o", o,
-                            *KERNEL_SOURCES], out)
+                            "-Xcompiler", "-fPIC", *flags, "-o", o,
+                            *sources], out)
     return out
+
+
+def build_kernels(forms) -> dict:
+    """Build the libraries of ``forms`` at once, one ``nvcc`` each; returns
+    {form: path}."""
+    forms = list(dict.fromkeys(forms))
+    with ThreadPoolExecutor(max_workers=max(len(forms), 1)) as ex:
+        return dict(zip(forms, ex.map(kernel_library, forms)))

@@ -9,7 +9,12 @@ The port's counterpart of the device half of ``ecfft_tpu/ops/schedule.py``
 - :func:`run_schedule` runs a schedule over a (B, m, L) batch: it packs
   the (W, L, B) state (with the unbatched extras of a general-modulus
   REDC/MOD behind the batch's rows), steps through the schedule, and
-  unpacks the first rows or the rows its ``out_perm`` names.
+  unpacks the first rows or the rows its ``out_perm`` names. For a prime
+  without a pseudo-Mersenne fold the state is in Montgomery form from the
+  pack to the unpack, as in the JAX package (``_pack_state``,
+  ``_unpack_state``): the packed rows are converted once on the way in
+  (the constant 1 becomes R mod p) and the output once on the way out,
+  each by the self-read step (a kernel launch on the card).
 
 The executor is a Python loop over the steps. Each step's opcode, window
 start, formula scalars and D-engine parameters come from the schedule's
@@ -341,11 +346,13 @@ def _run_steps(spec: FieldSpec, pool, sched: Schedule, bank, x):
 _ALLOC_MARGIN = 256 << 20  # room for the caching allocator's fragmentation
 
 
-def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int):
+def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int,
+                 m_in: int = 0):
     """(per-lane bytes, fixed bytes) of running ``sched`` on a batch of B
     by either executor. Per lane: the int32 state (the extras of a tuple
     payload are rows of it) and two gathered windows, or the m_out rows an
-    ``out_perm`` gathers once the windows are free, whichever is larger; an
+    ``out_perm`` gathers once the windows are free, or the m_in packed rows
+    a Montgomery conversion copies, whichever is larger; an
     OP_CMPSEL step frees its two compared windows before it gathers the two
     it selects from, and its (A, L, B) bool is covered by the margin.
     Fixed: the whole (B, m_out, L) output, and the per-step temporaries
@@ -353,14 +360,14 @@ def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int):
     the D-engine's planes and row products), with a margin for the
     allocator."""
     bsx = max(sched.bs_max, 1)
-    per_lane = (sched.W + max(2 * sched.A, m_out)) * L * 4
+    per_lane = (sched.W + max(2 * sched.A, m_out, m_in)) * L * 4
     fixed = (B * m_out * L * 4 + 4 * sched.A * L * 4 + 32 * sched.A * 8
              + 16 * bsx * L * 4 + _ALLOC_MARGIN)
     return per_lane, fixed
 
 
 def _lanes_per_chunk(sched: Schedule, L: int, B: int, m_out: int,
-                     device) -> int:
+                     device, m_in: int = 0) -> int:
     """Batch lanes that fit on the card at once (see :func:`_chunk_bytes`),
     budgeted from what the card and the caching allocator hold free. On
     the CPU the batch runs whole."""
@@ -369,7 +376,7 @@ def _lanes_per_chunk(sched: Schedule, L: int, B: int, m_out: int,
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device))
-    per_lane, fixed = _chunk_bytes(sched, L, B, m_out)
+    per_lane, fixed = _chunk_bytes(sched, L, B, m_out, m_in)
     lanes = (free - fixed) // per_lane
     if lanes < 1:
         raise SizeError(
@@ -405,21 +412,51 @@ def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
         return run_unrolled(spec, pool, sched, bank, batch, one_pos, m_out,
                             meta)
     return run_chunks(
-        sched, batch, one_pos, m_out,
+        spec, sched, batch, one_pos, m_out,
         lambda x: _run_steps(spec, pool, sched, bank, x))
 
 
-def run_chunks(sched: Schedule, batch, one_pos: int, m_out: int, run_steps):
+def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
+    """x[:m] ← factor·src·R⁻¹ mod p for (m, L, B) rows ``src`` in a buffer
+    of their own: the self-read step with coefficient rows ``factor`` on
+    zeroed rows. Factor R² mod p turns canonical values into Montgomery
+    form, factor 1 turns them back."""
+    C = fd.encode(spec, factor, x.device).expand(m, spec.num_limbs)
+    x[:m].zero_()
+    step.aff1s_ip(spec, C.contiguous(), x, src, 0)
+
+
+def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
+               m_out: int, run_steps):
     """Pack, run (``run_steps(state)``, in place) and unpack ``batch`` in
-    as many lane chunks as the device's memory asks for."""
-    first = batch[0] if isinstance(batch, (tuple, list)) else batch
+    as many lane chunks as the device's memory asks for. With Montgomery
+    residents (:func:`fields.device.is_mont`) the packed rows go into
+    Montgomery form after the pack, the constant 1 at ``one_pos`` (a row
+    past them) becomes R mod p, and the output rows leave it before the
+    unpack: the bits of the JAX package's state, which converts the whole
+    state (its other rows are zero, and 0·R = 0)."""
+    first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, _, L = first.shape
+    m_in = first.shape[1] + sum(e.shape[0] for e in extras)
     out = first.new_empty((B, m_out, L))
     perm = (None if sched.out_perm is None else
             torch.from_numpy(sched.out_perm).to(first.device, torch.int64))
-    chunk = _lanes_per_chunk(sched, L, B, m_out, first.device)
+    mont = fd.is_mont(spec)
+    chunk = _lanes_per_chunk(sched, L, B, m_out, first.device,
+                             m_in if mont else 0)
     for sl, part in lane_chunks(batch, chunk):
         x = to_state(part, sched.W, one_pos)
+        if mont:
+            _redc_rows(spec, x, m_in, x[:m_in].clone(), spec.r2_mod_p)
+            if sched.W > m_in and one_pos >= m_in:
+                x[one_pos] = fd.encode(spec, spec.r_mod_p, x.device)[:, None]
         run_steps(x)
-        out[sl] = from_state(x, m_out, perm)
+        if mont:
+            src = (x[:m_out].clone() if perm is None
+                   else x.index_select(0, perm))
+            _redc_rows(spec, x, m_out, src, 1)
+            del src
+            out[sl] = from_state(x, m_out)
+        else:
+            out[sl] = from_state(x, m_out, perm)
     return out

@@ -24,17 +24,18 @@ windows, and it reads no coefficient row:
 
 - :func:`mulss`: out[s+q] ← x1[q]·x2[q]
 
-A CUDA tensor goes to the hand-written kernel (built at first use by
-``ops/_build.py``), or the wrapper raises: there is no fallback. Two
-forms of each kernel: ``csrc/step_kernels.cu`` for fold-friendly primes
-of 16 limbs of 16 bits (secp256k1), ``csrc/m31_kernels.cu`` for M31, one
-32-bit word an element; :func:`kernel_form` picks one by the field and
-refuses any other, naming the cause. A CPU tensor goes to the plain
-PyTorch version beside it (:func:`_muladd1_cols`, :func:`_muladd2_cols`,
-:func:`_mulss_cols`), which mirrors the JAX package's XLA step in int64.
-Each wrapper counts its kernel launches, the 16-limb form's in its
-``launches`` attribute and the M31 form's in ``m31_launches``; the plain
-path does not count.
+A CUDA tensor goes to the hand-written kernel, or the wrapper raises: there
+is no fallback. :func:`kernel_form` names the form of the kernels that
+takes a field: "m31" (``csrc/m31_kernels.cu``, one 32-bit word an
+element), or a word form of ``csrc/step_kernels.cu`` and
+``csrc/fused_kernels.cu`` for L = 2 … 16 limbs of 16 bits, "fold<L>" for
+a prime with a pseudo-Mersenne fold (secp256k1 is "fold16", M61 "fold4")
+or "cios<L>" for any other (Montgomery residents, CIOS reduction). Each
+form's library is built at its first use (``ops/_build.py``). A CPU tensor
+goes to the plain PyTorch version beside it (:func:`_muladd1_cols`,
+:func:`_muladd2_cols`, :func:`_mulss_cols`), which mirrors the JAX
+package's XLA step in int64. Each wrapper counts its kernel launches per
+form in its ``launches`` Counter; the plain path does not count.
 
 For the in-place steps x1 and x2 must be buffers of their own, never
 views of the state: the in-place write is race-free only because every
@@ -46,6 +47,7 @@ view of its output at all; its two factors may be one buffer (a square).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -54,8 +56,8 @@ import torch
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec
 
-KERNEL_LIMBS = 16  # the kernels' compile-time limb count
-KERNEL_WORDS = 8  # the same element in 32-bit words (csrc/word_arith.cuh)
+MAX_LIMBS = 16  # the word forms' largest limb count (p < 2^256)
+MAX_WORDS = 8  # the same element in 32-bit words (csrc/word_arith.cuh)
 
 
 # ------------------------------------------------------- plain versions
@@ -63,35 +65,47 @@ KERNEL_WORDS = 8  # the same element in 32-bit words (csrc/word_arith.cuh)
 
 def _muladd1_cols(spec: FieldSpec, C, x1, x2):
     """x1 + C·x2 in the (W, L, B) layout, in int64 (C: (W, L, 1)). As the
-    JAX step does, x1 joins the product columns before the reduction (it
-    is smaller than a second product, so the two-product bounds cover
-    it); M31 adds it to the reduced product."""
+    JAX step does, x1 joins the product columns before the fold's
+    reduction (it is smaller than a second product, so the two-product
+    bounds cover it); with Montgomery residents it is added to the reduced
+    product with one conditional subtract; M31 adds it to the reduced
+    product."""
     if fd.is_m31(spec):
         return fd._m31_add(x1, fd._m31_mul(C, x2))
     c = fd._conv_cols(spec, C, x2)
+    if fd.is_mont(spec):
+        return fd._add_canon(spec, fd._mont_reduce_cols(spec, c), x1)
     c[..., :spec.num_limbs, :] += x1.long()
     return fd._reduce_cols(spec, c)
 
 
 def _muladd2_cols(spec: FieldSpec, A, x1, B, x2):
-    """A·x1 + B·x2 in the (W, L, B) layout, in int64 (A, B: (W, L, 1))."""
+    """A·x1 + B·x2 in the (W, L, B) layout, in int64 (A, B: (W, L, 1)):
+    one reduction of the two products' columns (a Montgomery one for
+    Montgomery residents)."""
     if fd.is_m31(spec):
         return fd._m31_add(fd._m31_mul(A, x1), fd._m31_mul(B, x2))
     c = fd._conv_cols(spec, A, x1) + fd._conv_cols(spec, B, x2)
+    if fd.is_mont(spec):
+        return fd._mont_reduce_cols(spec, c)
     return fd._reduce_cols(spec, c)
 
 
 def _mulss_cols(spec: FieldSpec, x1, x2):
-    """x1·x2 elementwise in the (W, L, B) layout, in int64: the column
-    pipeline of ``fields.device.mul`` with both factors batched."""
+    """x1·x2 elementwise in the (W, L, B) layout, in int64: the product's
+    columns and one reduction (a Montgomery one for Montgomery
+    residents), both factors batched."""
     if fd.is_m31(spec):
         return fd._m31_mul(x1, x2)
-    return fd._reduce_cols(spec, fd._conv_cols(spec, x1, x2))
+    c = fd._conv_cols(spec, x1, x2)
+    if fd.is_mont(spec):
+        return fd._mont_reduce_cols(spec, c)
+    return fd._reduce_cols(spec, c)
 
 
 # --------------------------------------------------------------- kernels
 
-_lib = None
+_libs: dict = {}  # form → the loaded library
 
 
 # (tensor pointers, ints) of each kernel's C interface after the field
@@ -105,35 +119,36 @@ _SIGNATURES = {
 }
 
 
-def load_kernels() -> ctypes.CDLL:
-    """Build (if stale) and load the kernels' library."""
-    global _lib
-    if _lib is None:
+def load_kernels(form: str = "fold16") -> ctypes.CDLL:
+    """Build (if stale) and load the kernels' library of ``form``."""
+    if form not in _libs:
         from ecfft_tpu_torch.ops._build import kernel_library
 
-        so = ctypes.CDLL(kernel_library())
+        so = ctypes.CDLL(kernel_library(form))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, (n_ptrs, n_ints) in _SIGNATURES.items():
-            fn = getattr(so, name)
+            if form == "m31":  # the same arguments without the constants
+                fn = getattr(so, _m31_name(name))
+                fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
+            else:
+                fn = getattr(so, name)
+                fn.argtypes = [ptr] + [ptr] * n_ptrs + [i32] * n_ints + [ptr]
             fn.restype = i32
-            fn.argtypes = [ptr] + [ptr] * n_ptrs + [i32] * n_ints + [ptr]
-            # the M31 form: the same arguments without the field constants
-            fn = getattr(so, _m31_name(name))
-            fn.restype = i32
-            fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
         so.ecfft_error_string.restype = ctypes.c_char_p
         so.ecfft_error_string.argtypes = [i32]
-        _lib = so
-    return _lib
+        _libs[form] = so
+    return _libs[form]
 
 
 class _Field(ctypes.Structure):
     """Mirror of ``struct Field`` in csrc/word_arith.cuh."""
-    _fields_ = [("p", ctypes.c_uint32 * KERNEL_LIMBS),
-                ("f", ctypes.c_uint32 * KERNEL_LIMBS),
+    _fields_ = [("pw", ctypes.c_uint32 * MAX_WORDS),
+                ("fw", ctypes.c_uint32 * MAX_WORDS),
+                ("np", ctypes.c_uint32),
+                ("np16", ctypes.c_uint32),
                 ("slack", ctypes.c_int),
-                ("pw", ctypes.c_uint32 * KERNEL_WORDS),
-                ("fw", ctypes.c_uint32 * KERNEL_WORDS)]
+                ("nw", ctypes.c_int),
+                ("mont", ctypes.c_int)]
 
 
 def _m31_name(name: str) -> str:
@@ -143,62 +158,57 @@ def _m31_name(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def kernel_form(spec: FieldSpec) -> str:
-    """Which form of the kernels takes ``spec``: "m31" (one 32-bit word an
-    element) or "limbs16" (16 limbs of 16 bits with a pseudo-Mersenne
-    fold whose digits sum below 2^10). Raises NotImplementedError naming
-    each cause for any other field: a fold-friendly prime of another limb
-    count still runs on the CPU (:func:`fields.device.check_fold` takes
-    it), never on the card."""
+    """The form of the kernels that takes ``spec``: "m31", "fold<L>" (L
+    limbs of 16 bits and a pseudo-Mersenne fold, ``spec.fold_terms``) or
+    "cios<L>" (no fold: Montgomery residents, as the JAX package keeps
+    them), for L = 2 … 16. Raises NotImplementedError naming the cause for
+    any other field: a prime below 2^16 other than M31's one-word form (one
+    16-bit limb, which the JAX package never takes to a Pallas kernel), or
+    one of more than 16 limbs."""
+    fd.check_fold(spec)
     if fd.is_m31(spec):
         return "m31"
-    causes = []
-    if spec.fold_terms is None:
-        causes.append("it has no pseudo-Mersenne fold and needs the CIOS "
-                      "Montgomery branch")
-    elif sum(d for _, d in spec.fold_terms) >= 1 << 10:
-        causes.append("its fold digits sum to 2^10 or more and need the "
-                      "CIOS Montgomery branch or a wider fold")
-    if spec.num_limbs != KERNEL_LIMBS or spec.limb_bits != 16:
-        causes.append(f"it has {spec.num_limbs} limbs of {spec.limb_bits} "
-                      f"bits, and the kernels are compiled for "
-                      f"{KERNEL_LIMBS} limbs of 16 bits (or M31's one "
-                      "32-bit word)")
-    if causes:
+    if spec.num_limbs > MAX_LIMBS or spec.limb_bits != 16:
         raise NotImplementedError(
-            f"{spec.name}: no CUDA kernel takes this field yet: "
-            + "; ".join(causes) + " (ROADMAP.md, Queue 2)")
-    return "limbs16"
+            f"{spec.name}: no CUDA kernel takes this field: it has "
+            f"{spec.num_limbs} limbs of {spec.limb_bits} bits, and the "
+            f"kernels take 2 to {MAX_LIMBS} limbs of 16 bits (p < 2^256) or "
+            "M31's one 32-bit word")
+    return f"{'cios' if fd.is_mont(spec) else 'fold'}{spec.num_limbs}"
+
+
+def _words(v: int):
+    return (ctypes.c_uint32 * MAX_WORDS)(*((v >> 32 * k) & 0xFFFFFFFF
+                                           for k in range(MAX_WORDS)))
 
 
 @functools.lru_cache(maxsize=None)
 def _field(spec: FieldSpec) -> _Field:
-    """The 16-limb kernels' field constants: p's limbs, the limbs of the
-    fold multiplier F = 2^(16L) mod p, the slack 16L − bitlen(p), and p
-    and F in 32-bit words."""
-    if kernel_form(spec) != "limbs16":
+    """The word forms' field constants: p in 32-bit words; the fold form's
+    multiplier F = 2^(16L) mod p in words, or the CIOS form's n' = −p⁻¹
+    mod 2^32 and mod 2^16; the slack 16L − bitlen(p); the word count and
+    the form, which the kernels check against their own."""
+    form = kernel_form(spec)
+    if form == "m31":
         raise ValueError(f"{spec.name}: the M31 kernels take no field "
                          "constants")
+    mont = form.startswith("cios")
     L = spec.num_limbs
-    f = [0] * L
-    for off, digit in spec.fold_terms:
-        f[off] += digit
-    F = spec.from_limbs(f)
-    words = ctypes.c_uint32 * KERNEL_WORDS
-    return _Field((ctypes.c_uint32 * L)(*spec.to_limbs(spec.p)),
-                  (ctypes.c_uint32 * L)(*f), 16 * L - spec.p.bit_length(),
-                  words(*((spec.p >> 32 * k) & 0xFFFFFFFF
-                          for k in range(KERNEL_WORDS))),
-                  words(*((F >> 32 * k) & 0xFFFFFFFF
-                          for k in range(KERNEL_WORDS))))
+    F = 0 if mont else spec.r_mod_p
+    np_ = (-pow(spec.p, -1, 1 << 32)) % (1 << 32) if mont else 0
+    return _Field(_words(spec.p), _words(F), np_, np_ & 0xFFFF,
+                  16 * L - spec.p.bit_length(), (L + 1) // 2, int(mont))
 
 
 def launch(name: str, spec: FieldSpec, device, *args) -> None:
-    """Call kernel ``name`` on ``device``'s current stream: its M31 form
-    with ``args``, or its 16-limb form with the field's constants, then
-    ``args``. Tensors go as their data pointers, the rest (ints, ctypes
-    references) as they are. Raises on a refused launch."""
-    lib = load_kernels()
-    if kernel_form(spec) == "m31":
+    """Call kernel ``name`` of the form that takes ``spec`` on
+    ``device``'s current stream: the M31 form with ``args``, a word form
+    with the field's constants, then ``args``. Tensors go as their data
+    pointers, the rest (ints, ctypes references) as they are. Raises on a
+    refused launch."""
+    form = kernel_form(spec)
+    lib = load_kernels(form)
+    if form == "m31":
         name, lead = _m31_name(name), ()
     else:
         lead = (ctypes.byref(_field(spec)),)
@@ -214,10 +224,7 @@ def launch(name: str, spec: FieldSpec, device, *args) -> None:
 
 def count(wrapper, spec: FieldSpec) -> None:
     """One launch more of ``wrapper``'s kernel, in the count of its form."""
-    if fd.is_m31(spec):
-        wrapper.m31_launches += 1
-    else:
-        wrapper.launches += 1
+    wrapper.launches[kernel_form(spec)] += 1
 
 
 # -------------------------------------------------------------- wrappers
@@ -376,13 +383,14 @@ def mulss(spec: FieldSpec, x1, x2, out, start: int) -> None:
 
 STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2, mulss)
 for _w in STEP_WRAPPERS:
-    _w.launches = _w.m31_launches = 0
+    _w.launches = collections.Counter()
 
 
 def mul_rows(spec: FieldSpec, a, b):
     """(N, L) × (N, L) field product through the self-read step with a
-    one-lane batch: out = 0 + a·b. The D-engine's row products run here,
-    so on a card they are kernel launches too."""
+    one-lane batch: out = 0 + a·b (a Montgomery product for Montgomery
+    residents). The D-engine's row products and the pool's conversion into
+    Montgomery form run here, so on a card they are kernel launches too."""
     out = torch.zeros((a.shape[0], a.shape[1], 1), dtype=torch.int32,
                       device=a.device)
     aff1s_ip(spec, a.contiguous(), out, b.contiguous().unsqueeze(-1), 0)

@@ -28,11 +28,11 @@ any pending run like every generic step. Every step produces canonical residues,
 executor's bit for bit.
 
 Each fused wrapper launches its hand-written kernel on a CUDA tensor (or
-raises): ``csrc/fused_kernels.cu`` for 16-limb fields,
-``csrc/m31_kernels.cu`` for M31. On a CPU tensor it runs its plain int64
-PyTorch version; each counts its launches as the step wrappers do
-(``launches``, ``m31_launches``). The plain versions compute the new
-window from a copy of the old one, then write it.
+raises): the word form of ``csrc/fused_kernels.cu`` that takes the field,
+or ``csrc/m31_kernels.cu`` for M31 (``ops.step.kernel_form``). On a CPU
+tensor it runs its plain int64 PyTorch version; each counts its launches
+per form as the step wrappers do (``launches``). The plain versions
+compute the new window from a copy of the old one, then write it.
 
 Left out, as plumbing for the TPU: the jitted segments (``SEG_STEPS``,
 ``_SEG_CACHE``, ``ECFFT_UNROLL_DEBUG``), the scoped-VMEM compiler
@@ -49,6 +49,7 @@ is split, as the reference splits at its budget.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -283,7 +284,7 @@ def fused_cascade(spec: FieldSpec, state, cwins, awins, start: int,
 
 FUSED_WRAPPERS = (fused_bf1, fused_bf2, fused_cascade)
 for _w in FUSED_WRAPPERS:
-    _w.launches = _w.m31_launches = 0
+    _w.launches = collections.Counter()
 
 
 # --------------------------------------------------------------- executor
@@ -300,7 +301,7 @@ def run_unrolled(spec: FieldSpec, pool, sched: Schedule, bank, batch,
     if meta is None:
         meta = _SchedMeta(sched)
     return sch.run_chunks(
-        sched, batch, one_pos, m_out,
+        spec, sched, batch, one_pos, m_out,
         lambda x: _run_steps(spec, pool, sched, meta, bank, x, max_levels))
 
 

@@ -1,10 +1,10 @@
 """The port's public surface against the JAX package's: the names it
 exports (``S0``, ``S1``, ``build_fftree``), ``eval_domain`` on both fields
-(the facade's and the native engine's), ``prepare(())``, the refusal of a
-field that no kernel takes (at construction for the card, naming the
-cause; accepted on the CPU where the plain arithmetic covers it), and
-DEGREE's decode of a one-limb accumulator. Needs no card: building a tree
-touches no device."""
+(the facade's and the native engine's), ``prepare(())``, the fields a
+tree takes (every odd prime of 2 to 16 limbs, on the card and the CPU;
+a prime of one 16-bit limb refused at construction, naming the cause),
+and DEGREE's decode of a one-limb accumulator. Needs no card: building a
+tree touches no device."""
 
 import numpy as np
 import pytest
@@ -14,8 +14,10 @@ import ecfft_tpu
 import ecfft_tpu_torch as ec
 from ecfft_tpu.native import build_fftree_native as jbuild
 from ecfft_tpu_torch import FFTree
+from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import spec_for_prime
 from ecfft_tpu_torch.native import NativeFFTree
+from ecfft_tpu_torch.ops import step
 
 
 def test_exports_match_the_jax_package():
@@ -55,23 +57,35 @@ M61 = spec_for_prime((1 << 61) - 1)          # 4 limbs, fold-friendly
 WIDE_FOLD = spec_for_prime((1 << 256) - 1053)  # 16 limbs, fold digit 1053
 CIOS = spec_for_prime(  # no pseudo-Mersenne fold
     0x0800000000000011000000000000000000000000000000000000000000000001)
+ONE_LIMB = spec_for_prime(65521)  # one 16-bit limb
 
 
-@pytest.mark.parametrize("spec,cause", [
-    (M61, "4 limbs of 16 bits"), (WIDE_FOLD, "sum to 2\\^10 or more"),
-    (CIOS, "CIOS")], ids=["m61", "wide-fold", "cios"])
-def test_unsupported_field_is_refused_for_the_card(spec, cause):
-    with pytest.raises(NotImplementedError, match=cause):
-        FFTree(spec, 16, {})  # the default device, the card
-    with pytest.raises(NotImplementedError, match=cause):
-        FFTree(spec, 16, {}, device="cuda")
-    with pytest.raises(NotImplementedError, match=cause):
-        ec.build_fftree_native(spec, 16)
-    if spec is CIOS:  # the plain arithmetic lacks it too
-        with pytest.raises(NotImplementedError, match="CIOS"):
-            FFTree(spec, 16, {}, device="cpu")
-    else:
-        assert FFTree(spec, 16, {}, device="cpu").device.type == "cpu"
+@pytest.mark.parametrize("spec,form", [
+    (M61, "fold4"), (WIDE_FOLD, "fold16"), (CIOS, "cios16"),
+    (ONE_LIMB, None)], ids=["m61", "wide-fold", "cios", "one-limb"])
+def test_unsupported_field_is_refused_for_the_card(spec, form):
+    """Every odd prime of 2 to 16 limbs has a form of the kernels: a tree
+    takes it on the card (the default device) and on the CPU, where its
+    product computes (canonical, whether the residents are canonical or
+    Montgomery). Only a prime of one 16-bit limb is refused, naming the
+    cause, on every device."""
+    if form is None:
+        for make in (lambda: FFTree(spec, 16, {}),
+                     lambda: FFTree(spec, 16, {}, device="cuda"),
+                     lambda: FFTree(spec, 16, {}, device="cpu"),
+                     lambda: ec.build_fftree_native(spec, 16)):
+            with pytest.raises(NotImplementedError, match="one 16-bit limb"):
+                make()
+        return
+    assert FFTree(spec, 16, {}).device.type == "cuda"
+    assert FFTree(spec, 16, {}, device="cuda").spec is spec
+    assert FFTree(spec, 16, {}, device="cpu").device.type == "cpu"
+    assert step.kernel_form(spec) == form
+    a = [0, 1, spec.p - 1, spec.p // 3, spec.r % spec.p]
+    b = [spec.p - 1, 5, spec.p - 2, spec.p // 7, spec.r % spec.p]
+    got = fd.decode(spec, fd.mul(spec, fd.encode(spec, a),
+                                 fd.encode(spec, b)))
+    assert list(got) == [x * y % spec.p for x, y in zip(a, b)]
 
 
 def test_the_card_takes_m31_and_secp256k1():

@@ -2,7 +2,9 @@
 versions (the same wrappers on CPU copies of the inputs), bit for bit,
 and ENTER/EXIT on the card, by either executor, against the CPU's; the
 nine M31 forms likewise, and M31's algorithms against the native engine
-and the CPU.
+and the CPU; the general prime's forms (the fold form at 4 and 16 limbs,
+the CIOS form at 3, 13 and 16 limbs, slack 0 among them) likewise, and
+its algorithms on the card against the CPU's.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -12,6 +14,7 @@ no JAX, so it runs on a machine without it:
 """
 
 import os
+import sys
 
 import pytest
 import torch
@@ -19,7 +22,11 @@ import torch
 from ecfft_tpu_torch import build_fftree_native
 from ecfft_tpu_torch.fields.registry import FIELDS, spec_for_prime
 from ecfft_tpu_torch.native import NativeFFTree
+from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.ops import _build, schedule, step, unrolled
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_general_fields import CURVES, FORMS, register  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -61,10 +68,10 @@ def _kernel_against_plain(card, kind, B):
     want = [a.clone() for a in args]
     wrapper(SPEC, *want, start)
     got = [a.to(card) for a in args]
-    before = wrapper.launches
+    before = wrapper.launches["fold16"]
     wrapper(SPEC, *got, start)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches["fold16"] == before + 1
     si = 2 if kind == "aff2g_ip" else 1  # the state's place in args
     assert torch.equal(got[si].cpu(), want[si])
 
@@ -103,15 +110,13 @@ def test_enter_chunks_the_batch_when_the_card_is_short(card, monkeypatch):
 
 
 def test_kernels_build_with_nvcc_alone(card, monkeypatch, tmp_path):
-    """Where ninja is missing the kernels are built by nvcc directly; the
-    library it makes runs the same kernels."""
-    from torch.utils import cpp_extension
-
-    monkeypatch.setattr(cpp_extension, "is_ninja_available", lambda: False)
+    """A form's library is built by nvcc at its first use, into the build
+    directory; the library it makes runs the same kernels."""
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
-    monkeypatch.setattr(step, "_lib", None)
+    monkeypatch.setattr(step, "_libs", {})
     _kernel_against_plain(card, "aff2g_ip", 3)
-    assert os.path.dirname(step._lib._name) == str(tmp_path)
+    assert os.path.dirname(step._libs["fold16"]._name) == str(tmp_path)
+    assert os.listdir(tmp_path) == ["libecfft_fold16.so"]
 
 
 @pytest.mark.parametrize("B", [1, 3, 128])
@@ -129,10 +134,10 @@ def test_out_of_place_kernel_matches_plain_version(card, kind, B):
     wrapper = getattr(step, kind)
     want, got = torch.empty_like(x1), torch.empty_like(x1, device=card)
     wrapper(SPEC, *coeffs, x1, x2, want, 0)
-    before = wrapper.launches
+    before = wrapper.launches["fold16"]
     wrapper(SPEC, *on_card, x1.to(card), x2.to(card), got, 0)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches["fold16"] == before + 1
     assert torch.equal(got.cpu(), want)
     for i, own in enumerate((True, False)):
         want = state.clone()
@@ -142,7 +147,7 @@ def test_out_of_place_kernel_matches_plain_version(card, kind, B):
         wrapper(SPEC, *on_card, got[start:start + A] if own
                 else x1.to(card), x2.to(card), got, start)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 2 + i
+        assert wrapper.launches["fold16"] == before + 2 + i
         assert torch.equal(got.cpu(), want)
 
 
@@ -162,7 +167,7 @@ def test_mulss_kernel_matches_plain_version(card, spec, B):
     top = torch.tensor(spec.to_limbs(spec.p - 1), dtype=torch.int32)
     x1[:8] = x2[:8] = top[:, None]
     state = _limbs(gen, W, B).permute(0, 2, 1).contiguous()
-    before = step.mulss.launches
+    before = step.mulss.launches["fold16"]
     for a, b in ((x1, x2), (x2, x2)):
         want = state.clone()
         step.mulss(spec, a, b, want, start)
@@ -172,7 +177,7 @@ def test_mulss_kernel_matches_plain_version(card, spec, B):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
         assert not torch.equal(want, state)
-    assert step.mulss.launches == before + 2
+    assert step.mulss.launches["fold16"] == before + 2
 
 
 def test_algorithms_on_card_match_cpu(card, monkeypatch):
@@ -192,12 +197,12 @@ def test_algorithms_on_card_match_cpu(card, monkeypatch):
         if ex == "unrolled":
             monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
         gpu = build_fftree_native("secp256k1", n, device=card)
-        before = step.mulss.launches
+        before = step.mulss.launches["fold16"]
         for (m, args), w in zip(calls, want):
             got = getattr(gpu, m)(*(t.to(card) if isinstance(t, torch.Tensor)
                                     else t for t in args))
             assert torch.equal(got.cpu(), w), (ex, m)
-        assert step.mulss.launches > before
+        assert step.mulss.launches["fold16"] > before
 
 
 # (form, TW, half or halves, kinds): pair levels one and two tiles apart,
@@ -232,11 +237,11 @@ def test_fused_kernel_matches_plain_version(card, monkeypatch, form, tw,
     want = state.clone()
     wrapper(SPEC, want, *args)
     got = state.to(card)
-    before = wrapper.launches
+    before = wrapper.launches["fold16"]
     wrapper(SPEC, got, *(a.to(card) if isinstance(a, torch.Tensor) else a
                          for a in args))
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert wrapper.launches["fold16"] == before + 1
     assert torch.equal(got.cpu(), want)
     assert not torch.equal(want, state)
 
@@ -258,14 +263,14 @@ def test_unrolled_enter_exit_on_card_match_cpu(card, monkeypatch, runs):
         return unrolled.run_unrolled(SPEC, gpu._pool, s, bank, batch, 2 * n,
                                      n, meta, max_levels)
 
-    counts = [w.launches for w in (*unrolled.FUSED_WRAPPERS,
-                                   *step.STEP_WRAPPERS[3:5])]
+    counts = [w.launches["fold16"] for w in (*unrolled.FUSED_WRAPPERS,
+                                             *step.STEP_WRAPPERS[3:5])]
     evals = run("enter", coeffs.to(card))
     assert torch.equal(evals.cpu(), want)
     assert torch.equal(run("exit", evals).cpu(), coeffs)
     assert torch.equal(gpu.enter(coeffs.to(card)), evals)
-    after = [w.launches for w in (*unrolled.FUSED_WRAPPERS,
-                                  *step.STEP_WRAPPERS[3:5])]
+    after = [w.launches["fold16"] for w in (*unrolled.FUSED_WRAPPERS,
+                                            *step.STEP_WRAPPERS[3:5])]
     assert all(a > b for a, b in zip(after, counts)), (counts, after)
 
 
@@ -318,12 +323,22 @@ def test_word_kernels_on_a_prime_with_slack(card, B):
 
 
 def test_unported_field_raises_on_card(card):
+    """The STARK prime (no fold) runs on the card in the CIOS form, as the
+    CPU computes it; a prime of one 16-bit limb is refused."""
     spec = spec_for_prime(
         0x0800000000000011000000000000000000000000000000000000000000000001)
-    z = torch.zeros((8, spec.num_limbs, 1), dtype=torch.int32, device=card)
-    c = torch.zeros((8, spec.num_limbs), dtype=torch.int32, device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step.aff1s_ip(spec, c, z.clone(), z, 0)
+    gen = torch.Generator().manual_seed(3)
+    x = _general(spec, gen, 8, 3).permute(0, 2, 1).contiguous()
+    c = _general(spec, gen, 8)
+    want = torch.zeros_like(x)
+    step.aff1s_ip(spec, c, want, x, 0)
+    got = torch.zeros_like(x, device=card)
+    step.aff1s_ip(spec, c.to(card), got, x.to(card), 0)
+    assert torch.equal(got.cpu(), want)
+    small = spec_for_prime(65521)
+    z = torch.zeros((8, 1, 1), dtype=torch.int32, device=card)
+    with pytest.raises(NotImplementedError, match="one 16-bit limb"):
+        step.aff1s_ip(small, z[..., 0], z.clone(), z, 0)
 
 
 # ------------------------------------------------------------------ M31
@@ -344,14 +359,20 @@ def _m31(gen, *shape):
 def _m31_call(form, gen, B):
     """(wrapper, arguments, index of the state among them) of one M31 form
     on a random state whose window rows start at a tile boundary."""
+    return _call(form, lambda *shape: _m31(gen, *shape), B)
+
+
+def _call(form, draw, B):
+    """(wrapper, arguments, index of the state among them) of one kernel
+    form on values ``draw(*shape)`` ((*shape, L) int32): a random state
+    whose window rows start at a tile boundary."""
     if form.startswith("fused"):
         A, start, W = 512, 512, 1152
     else:
         A, start, W = 200, 264, 520
-    state = _m31(gen, W, B).permute(0, 2, 1).contiguous()
-    x1, x2 = (_m31(gen, B, A).permute(1, 2, 0).contiguous()
-              for _ in range(2))
-    a, c = _m31(gen, A), _m31(gen, A)
+    state = draw(W, B).permute(0, 2, 1).contiguous()
+    x1, x2 = (draw(B, A).permute(1, 2, 0).contiguous() for _ in range(2))
+    a, c = draw(A), draw(A)
     calls = {
         "aff1s_ip": (step.aff1s_ip, (c, state, x2, start), 1),
         "aff1g_ip": (step.aff1g_ip, (c, state, x1, x2, start), 1),
@@ -362,7 +383,7 @@ def _m31_call(form, gen, B):
         "fused_bf1": (unrolled.fused_bf1, (state, c, start, 128), 0),
         "fused_bf2": (unrolled.fused_bf2, (state, a, c, start, 256), 0),
         "fused_cascade": (unrolled.fused_cascade, (
-            state, torch.stack([_m31(gen, A) for _ in range(3)]),
+            state, torch.stack([draw(A) for _ in range(3)]),
             a.unsqueeze(0), start, (64, 1, 2), (0, 1, 0)), 0),
     }
     return calls[form]
@@ -380,11 +401,11 @@ def test_m31_kernel_matches_plain_version(card, form, B):
     want = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
     wrapper(M31, *want)
     got = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
-    before = (wrapper.launches, wrapper.m31_launches)
+    before = dict(wrapper.launches)
     wrapper(M31, *got)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.m31_launches) == (before[0],
-                                                        before[1] + 1)
+    assert dict(wrapper.launches) == {**before,
+                                      "m31": before.get("m31", 0) + 1}
     assert torch.equal(got[si].cpu(), want[si])
     assert not torch.equal(want[si], args[si])
 
@@ -410,15 +431,15 @@ def test_m31_enter_exit_on_card_match_native(card, monkeypatch, ex):
     coeffs = _m31(gen, 3, n)
     gpu = build_fftree_native("m31", n, device=card)
     nt = NativeFFTree("m31", n)
-    before = [w.m31_launches for w in (*step.STEP_WRAPPERS,
-                                       *unrolled.FUSED_WRAPPERS)]
+    before = [w.launches["m31"] for w in (*step.STEP_WRAPPERS,
+                                          *unrolled.FUSED_WRAPPERS)]
     evals = gpu.enter(coeffs.to(card))
     for b in range(3):
         assert list(gpu.decode(evals[b])) == nt.enter(
             [int(v) for v in coeffs[b, :, 0]])
     assert torch.equal(gpu.exit(evals).cpu(), coeffs)
-    after = [w.m31_launches for w in (*step.STEP_WRAPPERS,
-                                      *unrolled.FUSED_WRAPPERS)]
+    after = [w.launches["m31"] for w in (*step.STEP_WRAPPERS,
+                                         *unrolled.FUSED_WRAPPERS)]
     assert sum(after) > sum(before)
 
 
@@ -441,9 +462,101 @@ def test_m31_algorithms_on_card_match_cpu(card, monkeypatch):
         if ex == "unrolled":
             monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
         gpu = build_fftree_native("m31", n, device=card)
-        before = step.mulss.m31_launches
+        before = step.mulss.launches["m31"]
         for (m, args), w in zip(calls, want):
             got = getattr(gpu, m)(*(t.to(card) if isinstance(t, torch.Tensor)
                                     else t for t in args))
             assert torch.equal(got.cpu(), w), (ex, m)
-        assert step.mulss.m31_launches > before
+        assert step.mulss.launches["m31"] > before
+
+
+# ---------------------------------------------------- the general prime
+
+# a prime of each new form: the CIOS form at 16 limbs (the STARK prime, and
+# a 256-bit prime with slack 0), at 3 and 13 limbs (odd: a 16-bit last
+# round); the fold form at 16 limbs with its digit past 2^10, and at 4
+GENERAL = [spec_for_prime(p, name) for name, p in (
+    ("stark",
+     0x0800000000000011000000000000000000000000000000000000000000000001),
+    ("cios256",
+     0xaacdabbb49c9c6072c54a01283037cadfde8ec5e3e1544596ebbec4cc598e9c7),
+    ("cios3", 0xff8000000f),
+    ("cios13", 0xd9cd502d42af1ffe0de8d79f49af6d114c4a6f188a424e61cb),
+    ("band", (1 << 256) - 1053), ("m61", (1 << 61) - 1))]
+
+
+def _general(spec, gen, *shape):
+    """Canonical values as (*shape, L) int32: random limbs with a top limb
+    below p's, the edge values 0, 1, p − 1, p − 2, R mod p and (p − 1)/2
+    first."""
+    L = spec.num_limbs
+    x = torch.randint(0, 1 << 16, (*shape, L), generator=gen,
+                      dtype=torch.int32)
+    x[..., -1] = torch.randint(0, spec.to_limbs(spec.p)[-1], shape,
+                               generator=gen, dtype=torch.int32)
+    p = spec.p
+    edge = fd.encode(spec, [0, 1, p - 1, p - 2, spec.r % p, (p - 1) // 2])
+    flat = x.view(-1, L)
+    k = min(edge.shape[0], flat.shape[0])
+    flat[:k] = edge[:k]
+    return x
+
+
+@pytest.mark.parametrize("B", [1, 5, 256])
+@pytest.mark.parametrize("form", ["aff1s_ip", "aff1g_ip", "aff2g_ip",
+                                  "muladd1", "muladd2", "mulss", "fused_bf1",
+                                  "fused_bf2", "fused_cascade"])
+@pytest.mark.parametrize("spec", GENERAL, ids=lambda s: s.name)
+def test_general_form_matches_plain_version(card, spec, form, B):
+    """Each kernel of each new form against its plain version: the edge
+    values in the first rows, rows outside the window untouched, one
+    launch counted, in the field's form."""
+    gen = torch.Generator().manual_seed(B)
+    wrapper, args, si = _call(form, lambda *sh: _general(spec, gen, *sh), B)
+    want = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    wrapper(spec, *want)
+    got = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    key = step.kernel_form(spec)
+    before = wrapper.launches[key]
+    wrapper(spec, *got)
+    torch.cuda.synchronize()
+    assert wrapper.launches[key] == before + 1
+    assert torch.equal(got[si].cpu(), want[si])
+    assert not torch.equal(want[si], args[si])
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_general_algorithms_on_card_match_cpu(card, monkeypatch, name):
+    """The eight algorithms over each general field on the card, on each
+    executor (the unrolled one at TW = 8, where n = 64 emits every fused
+    form), against the CPU's plain versions at n = 64 (the general
+    modulus at m = 16); the field's form launches."""
+    register()
+    n, gen = 64, torch.Generator().manual_seed(29)
+    cpu = build_fftree_native(name, n, device="cpu")
+    spec = cpu.spec
+    x, h = _general(spec, gen, 2, n), _general(spec, gen, 2, n // 2)
+    g, a, c = (_general(spec, gen, 2, 16), _general(spec, gen, 16),
+               _general(spec, gen, 16))
+    a[(a == 0).all(-1)] = fd.encode(spec, 1)  # no zero entry to invert
+    calls = [("enter", (x,)), ("exit", (x,)), ("extend", (h, 0)),
+             ("mextend", (h, 1)), ("degree", (cpu.enter(x),)),
+             ("redc_z0", (x,)), ("redc_z1", (x,)), ("modular_reduce", (x,)),
+             ("vanish", (h,)), ("redc_z0", (g, a)),
+             ("modular_reduce", (g, a, c))]
+    want = [getattr(cpu, m)(*args) for m, args in calls]
+    for ex in ("scan", "unrolled"):
+        if ex == "unrolled":
+            monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+            monkeypatch.setattr(unrolled, "TW", 8)
+        gpu = build_fftree_native(name, n, device=card)
+        before = [w.launches[FORMS[name]] for w in (*step.STEP_WRAPPERS,
+                                                    *unrolled.FUSED_WRAPPERS)]
+        for (m, args), w in zip(calls, want):
+            got = getattr(gpu, m)(*(t.to(card) if isinstance(t, torch.Tensor)
+                                    else t for t in args))
+            assert torch.equal(got.cpu(), w), (ex, m)
+        after = [w.launches[FORMS[name]] for w in (*step.STEP_WRAPPERS,
+                                                   *unrolled.FUSED_WRAPPERS)]
+        assert sum(after) > sum(before) and after[5] > before[5], ex
+

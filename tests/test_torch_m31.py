@@ -124,7 +124,7 @@ def test_step_plain_versions_match_jax_and_ints(kind):
     ca, cc = (torch.tensor(v).int().unsqueeze(-1) for v in (a, c))
     X1, X2 = _layout(x1), _layout(x2)
     wrapper = getattr(step, kind)
-    counts = [(w.launches, w.m31_launches) for w in step.STEP_WRAPPERS]
+    counts = [dict(w.launches) for w in step.STEP_WRAPPERS]
     got = state.clone()
     old = st[start:start + A]
     if kind == "aff1s_ip":
@@ -154,8 +154,7 @@ def test_step_plain_versions_match_jax_and_ints(kind):
     np.testing.assert_array_equal(win, want)
     assert torch.equal(got[:start], state[:start])
     assert torch.equal(got[start + A:], state[start + A:])
-    assert [(w.launches, w.m31_launches)
-            for w in step.STEP_WRAPPERS] == counts
+    assert [dict(w.launches) for w in step.STEP_WRAPPERS] == counts
 
 
 def test_row_products_and_square():

@@ -59,7 +59,7 @@ def test_no_jax_imports_in_the_port():
 
 
 COPIES = ["errors", "fields.host", "utils.poly", "ec.curve",
-          "fields.registry"]
+          "fields.registry", "find_curve"]
 
 
 @pytest.mark.parametrize("mod", COPIES)
@@ -93,13 +93,24 @@ def test_native_bindings_have_their_originals_source(name):
         inspect.getsource(getattr(jnat.NativeFFTree, name))
 
 
+@pytest.mark.parametrize("name", ["find_curve_native",
+                                  "find_curve_parallel"])
+def test_find_curve_bindings_have_their_originals_source(name):
+    """FIND_CURVE's native search, one thread and raced over threads."""
+    from ecfft_tpu import native as jnat
+    from ecfft_tpu_torch import native as tnat
+
+    assert inspect.getsource(getattr(tnat, name)) == \
+        inspect.getsource(getattr(jnat, name))
+
+
 def test_native_bindings_declare_the_originals_argument_types():
     from ecfft_tpu import native as jnat
     from ecfft_tpu_torch import native as tnat
 
     for fn in ("ecn_enter", "ecn_exit", "ecn_extend", "ecn_mextend",
                "ecn_degree", "ecn_redc", "ecn_mod", "ecn_vanish",
-               "ecn_table", "ecn_mats", "ecn_batch_inv"):
+               "ecn_table", "ecn_mats", "ecn_batch_inv", "ecn_find_curve"):
         port, orig = getattr(tnat.lib(), fn), getattr(jnat.lib(), fn)
         assert port.argtypes == orig.argtypes, fn
     assert tnat.lib().ecn_degree.restype is jnat.lib().ecn_degree.restype

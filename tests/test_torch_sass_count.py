@@ -230,3 +230,30 @@ def test_classify_puts_multiplies_and_alu_ops_on_their_pipes():
     assert [sass_count.classify(i) for i in insts] == [
         ("fma", "all"), ("fma", "all"), ("alu", "all"), ("alu", "all"),
         ("all",), ("all",), ("all",)]
+
+
+FOLD2 = ["ISETP.GE.AND P0, PT, R0, c[0x0][0x0], PT",  # 0
+         "@P0 EXIT",
+         "LOP3.LUT R9, R9, R10, RZ, 0xfc, !PT",      # 2: the fold loop
+         "@!P0 BRA @6>",                             # 3: F's word 0
+         "IMAD.WIDE.U32 R4, R5, R6, R4",
+         "IMAD.WIDE.U32 R6, R5, R7, R6",
+         "@!P1 BRA @9>",                             # 6: F's word 1
+         "IMAD.WIDE.U32 R8, R5, R8, R8",
+         "IMAD.WIDE.U32 R10, R5, R9, R10",
+         "IADD3 R9, R9, 0x1, RZ",                    # 9
+         "@P0 BRA @2>",                              # 10: the back edge
+         "EXIT"]
+
+
+@pytest.mark.parametrize("blocks,want", [
+    (2, {"fma": 2 * 2, "alu": 1 + 2 * 2, "all": 3 + 2 * 7}),
+    (8, {"fma": 0, "alu": 1 + 2, "all": 3 + 5})])
+def test_fold_loop_of_a_two_word_form(blocks, want):
+    """A fold loop with one skippable block per word of a 2-word form
+    (M61's fold4): read as the fold loop (2 rounds, nz = 1 of its 2
+    blocks, each of 2 IMAD.WIDEs) when ``fold_blocks`` is the form's word
+    count; at the default of 8 it is an ordinary loop that runs once with
+    its blocks skipped."""
+    (insts,) = sass_count.functions(_sass("fold4", FOLD2)).values()
+    assert sass_count.thread_counts(insts, 2, 1, (), blocks) == want

@@ -65,7 +65,7 @@ def test_step_matches_pallas_and_ints(kind, edge):
     j = {name: jnp.asarray(_u32(t)) for name, t in
          (("state", state), ("x1", x1), ("x2", x2), ("ca", ca), ("cb", cb))}
     got = state.clone()
-    launches = [w.launches for w in step.STEP_WRAPPERS]
+    launches = [dict(w.launches) for w in step.STEP_WRAPPERS]
     if kind == "aff1s":
         step.aff1s_ip(SPEC, cb, got, x2, START)
         ref = pallas_aff1s_ip(SPEC, j["cb"], j["state"], j["x2"],
@@ -93,7 +93,7 @@ def test_step_matches_pallas_and_ints(kind, edge):
                 exp = (ca_i[q] * x1_i[q, b] + cb_i[q] * x2_i[q, b]) % P
             assert dec[w, b] == exp, (kind, w, b)
     # the plain path counts no launch
-    assert [w.launches for w in step.STEP_WRAPPERS] == launches
+    assert [dict(w.launches) for w in step.STEP_WRAPPERS] == launches
 
 
 def test_field_mul_neg_and_row_products_match_ints():
@@ -124,12 +124,12 @@ def test_mulss_plain_version_matches_ints():
     rows = E * E + A
     st_i = _ints(rng, (rows + 2 * START, B), False)
     x1, x2, state = _layout(x1_i), _layout(x2_i), _layout(st_i)
-    launches = step.mulss.launches
+    launches = dict(step.mulss.launches)
     got = state.clone()
     step.mulss(SPEC, x1, x2, got, START)
     sq = state.clone()
     step.mulss(SPEC, x2, x2, sq, START)
-    assert step.mulss.launches == launches
+    assert dict(step.mulss.launches) == launches
     for t in (got, sq):
         assert t.dtype == torch.int32
         assert torch.equal(t[:START], state[:START])
@@ -186,27 +186,31 @@ def test_step_wrappers_reject_bad_operands(bad):
 
 @pytest.mark.parametrize("field", ["m61", "cios"])
 def test_unported_fields_raise(field):
-    """The kernels of other limb counts and the CIOS Montgomery branch are
-    still to be ported: the kernels' field check names the cause; a CIOS
-    prime's step also raises on the CPU, where M61 (4 limbs, fold-friendly)
-    computes."""
+    """M61 (4 limbs, a fold) and the STARK prime (no fold: the CIOS form,
+    Montgomery residents) each have a form of the kernels now, and the
+    step computes on the CPU: 1 + 2·3 for M61, and for the STARK prime the
+    Montgomery step R·1 + (R·2)(R·3)/R = R·7. A prime of one 16-bit limb
+    is still refused, naming the cause."""
     spec = spec_for_prime(
         (1 << 61) - 1 if field == "m61" else
         0x0800000000000011000000000000000000000000000000000000000000000001)
-    cause = "4 limbs" if field == "m61" else "CIOS"
     assert (spec.num_limbs == 4) == (field == "m61")
     assert (spec.fold_terms is None) == (field == "cios")
-    with pytest.raises(NotImplementedError, match=f"{cause}.*ROADMAP"):
-        step.kernel_form(spec)
-    if field == "cios":
-        z = torch.zeros((8, spec.num_limbs, 1), dtype=torch.int32)
-        c = torch.zeros((8, spec.num_limbs), dtype=torch.int32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step.aff1s_ip(spec, c, z.clone(), z, 0)
-    else:  # 1 + 2·3 on the CPU
-        out = fd.encode(spec, [1] * 8).unsqueeze(-1)
-        step.aff1s_ip(spec, fd.encode(spec, [2] * 8), out,
-                      fd.encode(spec, [3] * 8).unsqueeze(-1), 0)
-        assert fd.decode(spec, out[..., 0]).tolist() == [7] * 8
+    assert step.kernel_form(spec) == ("fold4" if field == "m61"
+                                      else "cios16")
+    mont = field == "cios"
+
+    def enc(v):
+        return fd.encode(spec, [v * spec.r % spec.p if mont else v] * 8)
+
+    out = enc(1).unsqueeze(-1)
+    step.aff1s_ip(spec, enc(2), out, enc(3).unsqueeze(-1), 0)
+    assert torch.equal(out[..., 0], enc(7))
     assert step.kernel_form(FIELDS["m31"]) == "m31"
-    assert step.kernel_form(SPEC) == "limbs16"
+    assert step.kernel_form(SPEC) == "fold16"
+    small = spec_for_prime(65521)  # one 16-bit limb
+    with pytest.raises(NotImplementedError, match="one 16-bit limb"):
+        step.kernel_form(small)
+    z = torch.zeros((8, 1, 1), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="one 16-bit limb"):
+        step.aff1s_ip(small, z[..., 0], z.clone(), z, 0)

@@ -90,7 +90,7 @@ def test_muladd_matches_pallas_and_ints(kind, edge):
         cb_i = np.roll(cb_i, 3)
     x1, x2 = _layout(x1_i), _layout(x2_i)
     ca, cb = fd.encode(SPEC, ca_i), fd.encode(SPEC, cb_i)
-    launches = [w.launches for w in step.STEP_WRAPPERS]
+    launches = [dict(w.launches) for w in step.STEP_WRAPPERS]
     got = torch.zeros_like(x2)
     if kind == "muladd1":
         step.muladd1(SPEC, cb, x1, x2, got, 0)
@@ -104,7 +104,7 @@ def test_muladd_matches_pallas_and_ints(kind, edge):
         for b in range(B):
             a = ca_i[w] if kind == "muladd2" else 1
             assert dec[w, b] == (a * x1_i[w, b] + cb_i[w] * x2_i[w, b]) % P
-    assert [w.launches for w in step.STEP_WRAPPERS] == launches
+    assert [dict(w.launches) for w in step.STEP_WRAPPERS] == launches
 
 
 def test_muladd_takes_a_view_of_the_state_and_rejects_bad_operands():
@@ -156,7 +156,7 @@ def test_fused_levels_match_pallas(tw8, form):
     spec, jspec = ((FIELDS["m31"], JFIELDS["m31"]) if form.endswith("-m31")
                    else (SPEC, JSPEC))
     form = form.removesuffix("-m31")
-    launches = [(w.launches, w.m31_launches) for w in tur.FUSED_WRAPPERS]
+    launches = [dict(w.launches) for w in tur.FUSED_WRAPPERS]
     if form == "cascade":
         W, A, start = 32, 16, 8
         halves, kinds = (4, 1, 2), (1, 0, 1)
@@ -183,8 +183,7 @@ def test_fused_levels_match_pallas(tw8, form):
     assert torch.equal(got[:start], state[:start])
     assert torch.equal(got[start + A:], state[start + A:])
     assert not torch.equal(got[start:start + A], state[start:start + A])
-    assert [(w.launches, w.m31_launches)
-            for w in tur.FUSED_WRAPPERS] == launches
+    assert [dict(w.launches) for w in tur.FUSED_WRAPPERS] == launches
 
 
 def test_fused_levels_reject_broken_pairings(tw8):

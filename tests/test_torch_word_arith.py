@@ -1,14 +1,21 @@
-"""csrc/word_arith.cuh, the redesigned kernels' field arithmetic, compiled
-with g++ on the CPU (the very header nvcc compiles for the card) into a
-small ctypes harness in ``ecfft_tpu_torch/_build/``, and held against
-Python integers: pack/unpack, the 1- and 2-product multiply-adds and the
-reduction, for secp256k1 and 2^255 − 19, on edge values, seeded random
-values and hypothesis cases (512-bit inputs fed straight to the
-reduction). Also: ``ops/step.py::_Field`` mirrors ``struct Field`` field
-by field. The M31 kernels' ``csrc/m31_arith.cuh`` goes into the same
-harness: its sum, product, the two multiply-adds and the reduction of any
-64-bit value, on edge, seeded and hypothesis values. Needs g++ only;
-imports no JAX."""
+"""csrc/word_arith.cuh, the kernels' field arithmetic on 32-bit words,
+compiled with g++ on the CPU (the very header nvcc compiles for the card)
+into a small ctypes harness in ``ecfft_tpu_torch/_build/``, and held
+against Python integers. The harness instantiates the header's templates
+at 2, 3, 4, 7, 8, 13, 14, 15 and 16 limbs (1, 2, 4, 7 and 8 words, odd limb
+counts among them), in both forms: the fold (a pseudo-Mersenne prime,
+canonical values) and CIOS (any other prime, Montgomery values with R =
+2^(16L), an odd L's last round on a 16-bit digit). Checked: pack/unpack
+and the strided load/store, the 1- and 2-product multiply-adds, both
+reductions, the three functions the kernels call (fma1, fma2, mul) and the
+modular add, on edge values, seeded random values and hypothesis cases;
+for secp256k1 and 2^255 − 19 also 512-bit inputs fed straight to the fold
+and the inputs that make it run three rounds; for every CIOS prime, among
+them a 256-bit prime with slack 0, the reduction at the top of its range.
+Also: ``ops/step.py::_Field`` mirrors ``struct Field`` field by field. The
+M31 kernels' ``csrc/m31_arith.cuh`` goes into the same harness: its sum,
+product, the two multiply-adds and the reduction of any 64-bit value, on
+edge, seeded and hypothesis values. Needs g++ only; imports no JAX."""
 
 import ctypes
 import os
@@ -24,6 +31,7 @@ from ecfft_tpu_torch.ops import _build, step
 HEADER = os.path.join(os.path.dirname(_build.KERNEL_SOURCES[0]),
                       "word_arith.cuh")
 M31_HEADER = os.path.join(os.path.dirname(HEADER), "m31_arith.cuh")
+FORMS = (2, 3, 4, 7, 8, 13, 14, 15, 16)  # the limb counts the harness takes
 HARNESS = r"""
 #include <cstddef>
 #include "word_arith.cuh"
@@ -36,36 +44,68 @@ template <int N> static void out(const uint32_t (&a)[N], uint32_t* p) {
   for (int k = 0; k < N; ++k) p[k] = a[k];
 }
 
+// one function of the header at NL limbs: a..d are NW words (v: 2 NW + 1)
+template <int NL>
+static void op(int which, const Field* fd, const uint32_t* a,
+               const uint32_t* b, const uint32_t* c, const uint32_t* d,
+               uint32_t* r) {
+  constexpr int NW = wa::words(NL);
+  uint32_t A[NW], B[NW], C[NW], D[NW], V[2 * NW + 1], R[NW], Lm[NL];
+  switch (which) {
+    case 0: in(a, A); in(b, B); in(c, C); wa::mul_add<NW>(A, B, C, V);
+            out(V, r); break;
+    case 1: in(a, A); in(b, B); in(c, C); in(d, D);
+            wa::mul_add2<NW>(A, B, C, D, V); out(V, r); break;
+    case 2: in(a, V); wa::reduce<NL>(*fd, V, R); out(R, r); break;
+    case 3: in(a, V); wa::redc<NL>(*fd, V, R); out(R, r); break;
+    case 4: in(a, A); in(b, B); in(c, C);
+            wa::fma1<NL, false>(*fd, A, B, C, R); out(R, r); break;
+    case 5: in(a, A); in(b, B); in(c, C);
+            wa::fma1<NL, true>(*fd, A, B, C, C); out(C, r); break;
+    case 6: in(a, A); in(b, B); in(c, C); in(d, D);
+            wa::fma2<NL, false>(*fd, A, B, C, D, R); out(R, r); break;
+    case 7: in(a, A); in(b, B); in(c, C); in(d, D);
+            wa::fma2<NL, true>(*fd, A, B, C, D, B); out(B, r); break;
+    case 8: in(a, A); in(b, B); wa::mul<NL, false>(*fd, A, B, R);
+            out(R, r); break;
+    case 9: in(a, A); in(b, B); wa::mul<NL, true>(*fd, A, B, A);
+            out(A, r); break;
+    case 10: in(a, Lm); wa::pack<NL>(Lm, R); out(R, r); break;
+    case 11: in(a, A); wa::unpack<NL>(A, Lm); out(Lm, r); break;
+    case 12: in(a, A); in(b, B); wa::add_mod<NW>(*fd, A, B, R); out(R, r);
+             break;
+  }
+}
+
+template <int NL>
+static void load_store(const int32_t* src, int32_t* dst, long stride,
+                       uint32_t* w) {
+  uint32_t a[wa::words(NL)];
+  wa::load_words<NL>(src, stride, a);
+  out(a, w);
+  wa::store_words<NL>(dst, stride, a);
+}
+
 extern "C" {
-void h_pack(const uint32_t* l, uint32_t* w) {
-  uint32_t a[NL], b[NW]; in(l, a); wa::pack(a, b); out(b, w);
+#define FORM(N) case N: op<N>(which, fd, a, b, c, d, r); return 0;
+int h_op(int nl, int which, const Field* fd, const uint32_t* a,
+         const uint32_t* b, const uint32_t* c, const uint32_t* d,
+         uint32_t* r) {
+  switch (nl) { FORM(2) FORM(3) FORM(4) FORM(7) FORM(8) FORM(13) FORM(14)
+                FORM(15) FORM(16) }
+  return 1;
 }
-void h_unpack(const uint32_t* w, uint32_t* l) {
-  uint32_t a[NW], b[NL]; in(w, a); wa::unpack(a, b); out(b, l);
-}
-void h_load_store(const int32_t* src, int32_t* dst, long stride,
-                  uint32_t* w) {
-  uint32_t a[NW]; wa::load_words(src, stride, a); out(a, w);
-  wa::store_words(dst, stride, a);
-}
-void h_mul_add(const uint32_t* a, const uint32_t* b, const uint32_t* x,
-               uint32_t* v) {
-  uint32_t A[NW], B[NW], X[NW], V[NV];
-  in(a, A); in(b, B); in(x, X); wa::mul_add(A, B, X, V); out(V, v);
-}
-void h_mul_add2(const uint32_t* a, const uint32_t* b, const uint32_t* c,
-                const uint32_t* d, uint32_t* v) {
-  uint32_t A[NW], B[NW], C[NW], D[NW], V[NV];
-  in(a, A); in(b, B); in(c, C); in(d, D); wa::mul_add2(A, B, C, D, V);
-  out(V, v);
-}
-void h_reduce(const Field* fd, const uint32_t* v, uint32_t* r) {
-  uint32_t V[NV], R[NW]; in(v, V); wa::reduce(*fd, V, R); out(R, r);
+#define LS(N) case N: load_store<N>(src, dst, stride, w); return 0;
+int h_load_store(int nl, const int32_t* src, int32_t* dst, long stride,
+                 uint32_t* w) {
+  switch (nl) { LS(3) LS(4) LS(13) LS(16) }
+  return 1;
 }
 void h_layout(size_t* o) {
-  o[0] = offsetof(Field, p); o[1] = offsetof(Field, f);
-  o[2] = offsetof(Field, slack); o[3] = offsetof(Field, pw);
-  o[4] = offsetof(Field, fw); o[5] = sizeof(Field);
+  o[0] = offsetof(Field, pw); o[1] = offsetof(Field, fw);
+  o[2] = offsetof(Field, np); o[3] = offsetof(Field, np16);
+  o[4] = offsetof(Field, slack); o[5] = offsetof(Field, nw);
+  o[6] = offsetof(Field, mont); o[7] = sizeof(Field);
 }
 uint32_t h_m31_reduce(uint64_t t) { return m31::reduce(t); }
 uint32_t h_m31_add(uint32_t a, uint32_t b) { return m31::add(a, b); }
@@ -99,8 +139,9 @@ def lib():
             "g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I",
             os.path.dirname(HEADER), "-o", o, src], out)
     so = ctypes.CDLL(out)
-    so.h_load_store.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_long, ctypes.c_void_p]
+    ptr = ctypes.c_void_p
+    so.h_op.argtypes = [ctypes.c_int, ctypes.c_int] + [ptr] * 6
+    so.h_load_store.argtypes = [ctypes.c_int, ptr, ptr, ctypes.c_long, ptr]
     u32 = ctypes.c_uint32
     so.h_m31_reduce.argtypes = [ctypes.c_uint64]
     for name, n in (("h_m31_add", 2), ("h_m31_mul", 2),
@@ -125,23 +166,42 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+# the harness's functions (h_op's `which`)
+MUL_ADD, MUL_ADD2, REDUCE, REDC, FMA1, FMA1_M, FMA2, FMA2_M, MUL, MUL_M, \
+    PACK, UNPACK, ADD_MOD = range(13)
+
+
+def call(lib, nl: int, which: int, spec, *vals, n_in=None):
+    """One header function at nl limbs on python ints; returns an int
+    (PACK/UNPACK: the words or limbs as a list)."""
+    nw = (nl + 1) // 2
+    n_in = n_in or (2 * nw + 1 if which in (REDUCE, REDC) else
+                    nl if which == PACK else nw)
+    bufs = [_words(v, n_in) if which != PACK else
+            np.array([(v >> 16 * j) & 0xFFFF for j in range(nl)], np.uint32)
+            for v in vals] + [np.zeros(max(n_in, 2 * nw + 1), np.uint32)
+                              for _ in range(4 - len(vals))]
+    r = np.zeros(2 * nw + 1 + nl, np.uint32)
+    fd = ctypes.byref(step._field(spec)) if spec is not None else None
+    assert lib.h_op(nl, which, fd, *(_ptr(b) for b in bufs[:4]),
+                    _ptr(r)) == 0
+    if which in (MUL_ADD, MUL_ADD2):
+        return _int(r[:2 * nw + 1])
+    if which == UNPACK:
+        return [int(x) for x in r[:nl]]
+    return _int(r[:nw])
+
+
 def mul_add(lib, a, b, x):
-    v = np.zeros(NV, np.uint32)
-    lib.h_mul_add(*(_ptr(_words(u, 8)) for u in (a, b, x)), _ptr(v))
-    return _int(v)
+    return call(lib, 16, MUL_ADD, None, a, b, x)
 
 
 def mul_add2(lib, a, b, c, d):
-    v = np.zeros(NV, np.uint32)
-    lib.h_mul_add2(*(_ptr(_words(u, 8)) for u in (a, b, c, d)), _ptr(v))
-    return _int(v)
+    return call(lib, 16, MUL_ADD2, None, a, b, c, d)
 
 
 def reduce(lib, spec, v):
-    r = np.zeros(8, np.uint32)
-    lib.h_reduce(ctypes.byref(step._field(spec)), _ptr(_words(v, NV)),
-                 _ptr(r))
-    return _int(r)
+    return call(lib, spec.num_limbs, REDUCE, spec, v)
 
 
 def _fold_rounds(spec, v):
@@ -183,43 +243,49 @@ def edge_values(spec):
 
 
 def test_field_mirror_matches_the_struct(lib):
-    got = (ctypes.c_size_t * 6)()
+    got = (ctypes.c_size_t * 8)()
     lib.h_layout(got)
     F = step._Field
-    assert list(got) == [F.p.offset, F.f.offset, F.slack.offset,
-                         F.pw.offset, F.fw.offset, ctypes.sizeof(F)]
-    assert [name for name, _ in F._fields_] == ["p", "f", "slack", "pw",
-                                                "fw"]
-    assert F.pw.size == 4 * step.KERNEL_WORDS == F.fw.size
+    assert list(got) == [F.pw.offset, F.fw.offset, F.np.offset,
+                         F.np16.offset, F.slack.offset, F.nw.offset,
+                         F.mont.offset, ctypes.sizeof(F)]
+    assert [name for name, _ in F._fields_] == ["pw", "fw", "np", "np16",
+                                                "slack", "nw", "mont"]
+    assert F.pw.size == 4 * step.MAX_WORDS == F.fw.size
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
 def test_field_words_are_p_and_the_fold_multiplier(spec):
     fd = step._field(spec)
     assert _int(fd.pw) == spec.p
-    assert _int(fd.fw) == (1 << 256) % spec.p == spec.from_limbs(fd.f)
+    assert _int(fd.fw) == (1 << 256) % spec.p
     assert fd.slack == 256 - spec.p.bit_length()
+    assert (fd.np, fd.np16, fd.nw, fd.mont) == (0, 0, 8, 0)
 
 
 def test_pack_unpack_and_strided_load_store(lib):
+    """At 16, 13, 4 and 3 limbs (an odd count's top limb alone in its
+    word)."""
     rng = random.Random(1)
-    for v in edge_values(SECP) + [rng.getrandbits(256) for _ in range(20)]:
-        limbs = np.array([(v >> 16 * j) & 0xFFFF for j in range(16)],
-                         np.uint32)
-        w = np.zeros(8, np.uint32)
-        lib.h_pack(_ptr(limbs), _ptr(w))
-        assert _int(w) == v
-        back = np.zeros(16, np.uint32)
-        lib.h_unpack(_ptr(w), _ptr(back))
-        assert np.array_equal(back, limbs)
-        stride = 3  # limb j at j * stride, as a state's lane is
-        src = np.full(16 * stride, -1, np.int32)
-        src[::stride] = limbs.astype(np.int32)
-        dst = np.full_like(src, -7)
-        lib.h_load_store(_ptr(src), _ptr(dst), stride, _ptr(w))
-        assert _int(w) == v
-        assert np.array_equal(dst[::stride], src[::stride])
-        assert (np.delete(dst, np.arange(0, dst.size, stride)) == -7).all()
+    for nl in (16, 13, 4, 3):
+        top = (1 << 16 * nl) - 1
+        for v in [0, 1, top, top - 1, 1 << (16 * nl - 1)] + [
+                rng.getrandbits(16 * nl) for _ in range(20)]:
+            limbs = np.array([(v >> 16 * j) & 0xFFFF for j in range(nl)],
+                             np.uint32)
+            assert call(lib, nl, PACK, None, v) == v
+            assert call(lib, nl, UNPACK, None, v) == list(limbs)
+            stride = 3  # limb j at j * stride, as a state's lane is
+            src = np.full(nl * stride, -1, np.int32)
+            src[::stride] = limbs.astype(np.int32)
+            dst = np.full_like(src, -7)
+            w = np.zeros((nl + 1) // 2, np.uint32)
+            assert lib.h_load_store(nl, _ptr(src), _ptr(dst), stride,
+                                    _ptr(w)) == 0
+            assert _int(w) == v
+            assert np.array_equal(dst[::stride], src[::stride])
+            assert (np.delete(dst, np.arange(0, dst.size, stride))
+                    == -7).all()
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
@@ -296,6 +362,130 @@ def test_hypothesis_reduce_512_bit_inputs(lib, hi, lo, which):
     spec = SPECS[which]
     v = hi << 256 | lo
     assert reduce(lib, spec, v) == v % spec.p
+
+
+# ------------------------------------------- every form: fold and CIOS
+
+# (name, prime) at 2 .. 16 limbs, 1 .. 8 words: fold-friendly primes (the
+# largest below 2^(16L), Mersenne primes, M61, 2^256 − 1053 whose fold
+# digit is past 2^10) and primes without a fold (the CIOS form: the STARK
+# prime, the odd-L primes the card's phase 10 takes, and seeded random
+# primes, among them CIOS256, a 256-bit prime with slack 0 drawn by
+# nextprime(random.Random(256).getrandbits(256) | 2^255)).
+CIOS256 = 0xf50b79840a35e888cea8684b60033cd65db233956ea88f4b4f72fd3f7d254dc9
+FORM_PRIMES = [
+    ("fold2", (1 << 31) - 19), ("fold3", 0xffffffffffc5),
+    ("m61", (1 << 61) - 1), ("mersenne107", (1 << 107) - 1),
+    ("mersenne127", (1 << 127) - 1),
+    ("fold13", 0xfffffffffffffffffffffffffffffffffffffffffffffffffed5),
+    ("fold14", (1 << 224) - 63),
+    ("fold15", 0xfffffffffffffffffffffffffffffffffffffffffffffffffffffffffe2d),
+    ("band", (1 << 256) - 1053),
+    ("cios2", 0xf4bea985), ("cios3", 0xff8000000f),
+    ("cios4", 0xae84496e7857ddc5),
+    ("cios7", 0xb3404dc2a627940eee3cba6f8771),
+    ("cios8", 0xc1d8fac168fb90d7b938451ee325fabd),
+    ("cios13", 0xd9cd502d42af1ffe0de8d79f49af6d114c4a6f188a424e61cb),
+    ("cios14", 0xd0055979a2da95a83ec33dd6887e840043e58844c2354e2bb7740aa9),
+    ("cios15",
+     0xf6979d9b532aba4e6c3686ff0de26a7698065aab0a377f90ade7bc38d7d3),
+    ("stark",
+     0x0800000000000011000000000000000000000000000000000000000000000001),
+    ("cios256", CIOS256),
+]
+FORM_SPECS = [spec_for_prime(p, name) for name, p in FORM_PRIMES]
+
+
+def test_form_primes_cover_each_form():
+    forms = {(s.num_limbs, step.kernel_form(s)[:4]) for s in FORM_SPECS}
+    for nl in FORMS:
+        assert {(nl, "fold"), (nl, "cios")} <= forms, nl
+    by = {s.name: s for s in FORM_SPECS}
+    assert by["band"].fold_terms == ((0, 1053),)
+    assert by["cios256"].p.bit_length() == 256
+    assert all(s.fold_terms is None for s in FORM_SPECS
+               if s.name.startswith("cios") or s.name == "stark")
+
+
+def _want(spec, mont: bool, value: int) -> int:
+    """A product's reduction in the form: canonical, times R⁻¹ for CIOS."""
+    if mont:
+        value *= pow(spec.r, -1, spec.p)
+    return value % spec.p
+
+
+def _form_checks(lib, spec, a, b, c, d):
+    """fma1, fma2 and mul of the form that takes ``spec``, and the bare
+    reduction of their products, against python ints."""
+    nl, p = spec.num_limbs, spec.p
+    mont = step.kernel_form(spec).startswith("cios")
+    ops = (FMA1_M, FMA2_M, MUL_M) if mont else (FMA1, FMA2, MUL)
+    assert call(lib, nl, ops[0], spec, a, b, c) == (
+        c + _want(spec, mont, a * b)) % p
+    assert call(lib, nl, ops[1], spec, a, b, c, d) == _want(
+        spec, mont, a * b + c * d)
+    assert call(lib, nl, ops[2], spec, a, b) == _want(spec, mont, a * b)
+    v = call(lib, nl, MUL_ADD2, None, a, b, c, d)
+    assert v == a * b + c * d
+    assert call(lib, nl, REDC if mont else REDUCE, spec, v) == _want(
+        spec, mont, v)
+    assert call(lib, nl, ADD_MOD, spec, a, c) == (a + c) % p
+
+
+def form_edges(spec):
+    """0, 1, 2, p − 1, p − 2, (p − 1)/2, R mod p and R² mod p (Montgomery
+    1 and R), F − 1, and the values nearest 2^(16L − 1)."""
+    p, R = spec.p, spec.r
+    vals = {0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, R * R % p,
+            (R % p) - 1, (1 << (16 * spec.num_limbs - 1)) % p}
+    return sorted(v for v in vals if 0 <= v < p)
+
+
+@pytest.mark.parametrize("spec", FORM_SPECS, ids=lambda s: s.name)
+def test_form_edge_values(lib, spec):
+    E = form_edges(spec)
+    for a in E:
+        for b in E:
+            _form_checks(lib, spec, a, b, E[-1 - E.index(a)], b)
+            _form_checks(lib, spec, a, b, spec.p - 1, spec.p - 1)
+
+
+@pytest.mark.parametrize("spec", FORM_SPECS, ids=lambda s: s.name)
+def test_form_seeded_random_values(lib, spec):
+    rng = random.Random(spec.p % 10007)
+    for _ in range(150):
+        _form_checks(lib, spec, *(rng.randrange(spec.p) for _ in range(4)))
+
+
+@pytest.mark.parametrize("spec", [s for s in FORM_SPECS
+                                  if s.fold_terms is None],
+                         ids=lambda s: s.name)
+def test_cios_bound_inputs(lib, spec):
+    """The reduction at the top of its range: v = 2(p − 1)², the largest
+    sum of two products, and sums whose Montgomery quotient lands within
+    a few units of 2p and of p before the final subtractions."""
+    p, R, nl = spec.p, spec.r, spec.num_limbs
+    rinv = pow(R, -1, p)
+    top = 2 * (p - 1) ** 2
+    rng = random.Random(nl)
+    vals = [top, top - 1, (p - 1) ** 2, p * p - 1, 2 * p * p - 1 - 2 * p]
+    for target in (2 * p, 2 * p - 1, p, p - 1, 2 * p + 1):
+        # v = target·R − M·p for an M < R with v ≡ 0 mod R's residues
+        for _ in range(3):
+            m = rng.randrange(R)
+            v = target * R - m * p
+            if 0 <= v <= top:
+                vals.append(v)
+    for v in vals:
+        assert call(lib, nl, REDC, spec, v) == v * rinv % p
+
+
+@settings(max_examples=200, deadline=None)
+@given(which=st.integers(0, len(FORM_SPECS) - 1), data=st.data())
+def test_form_hypothesis(lib, which, data):
+    spec = FORM_SPECS[which]
+    el = st.integers(0, spec.p - 1)
+    _form_checks(lib, spec, *(data.draw(el) for _ in range(4)))
 
 
 # ------------------------------------------------------------------ M31

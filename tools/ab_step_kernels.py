@@ -7,18 +7,22 @@ commit unpacked into a directory (``step_kernels.cu``, ``fused_kernels.cu``
 and the headers they include)::
 
     mkdir -p OLD && for f in step_kernels.cu fused_kernels.cu \\
-        field_arith.cuh word_arith.cuh; do \\
+        word_arith.cuh levels.cuh; do \\
         git show COMMIT:ecfft_tpu_torch/csrc/$f > OLD/$f; done
+
+(and ``field_arith.cuh`` from a commit that still has it)
     python3 tools/ab_step_kernels.py OLD [MORE_DIRS ...]
 
 Builds one library from each directory and one from the current sources
 (``ops/_build.py``'s ``KERNEL_SOURCES``), each with ``nvcc`` alone into
 ``ecfft_tpu_torch/_build/ab``, all builds started together. A directory
 may hold a variant of one source only: the files it lacks are the current
-ones. Prints what ``-Xptxas -v`` says of each kernel of each build
-(registers, shared bytes, spills). The older
-libraries take the current ``Field`` struct: its fields only grew at the
-end, so a kernel that reads fewer of them reads the same bytes. Then, at
+ones. Every build is secp256k1's form, "fold16" (``-DECFFT_NL=16
+-DECFFT_MONT=0``, which sources older than the forms ignore). Prints what
+``-Xptxas -v`` says of each kernel of each build (registers, shared bytes,
+spills). A build whose ``word_arith.cuh`` still declares p's 16-bit limbs
+first in ``struct Field`` (before the general prime) takes that layout
+(:class:`OldField`), any other the current one. Then, at
 the main path's shapes (state W 131200, L 16, B 256, window A 65536;
 seeded random operands, the same for every library), times each kernel
 from each library in turns (the directories, the current build, then the
@@ -70,7 +74,8 @@ def build(name: str, sources: list) -> tuple:
                         "nvcc")
     proc = subprocess.run(
         [nvcc, _build.CUDA_ARCH, "-std=c++17", "-O3", "-shared", "-Xptxas",
-         "-v", "-Xcompiler", "-fPIC", "-I",
+         "-v", "-Xcompiler", "-fPIC", "-DECFFT_NL=16", "-DECFFT_MONT=0",
+         "-I",
          os.path.dirname(_build.KERNEL_SOURCES[0]), "-o", out, *sources],
         capture_output=True, text=True)
     if proc.returncode:
@@ -173,8 +178,29 @@ def wrapper_call(name: str, o: dict, half: int):
     }[name]
 
 
-def launcher(lib: str, name: str, o: dict, lv, half: int):
-    """A function that launches kernel ``name`` of ``lib`` once."""
+class OldField(ctypes.Structure):
+    """``struct Field`` as word_arith.cuh declared it before the general
+    prime: p's and F's 16-bit limbs, the slack, then p and F in words."""
+    _fields_ = [("p", ctypes.c_uint32 * 16), ("f", ctypes.c_uint32 * 16),
+                ("slack", ctypes.c_int), ("pw", ctypes.c_uint32 * 8),
+                ("fw", ctypes.c_uint32 * 8)]
+
+
+def field_for(header: str):
+    """The field constants in the layout of ``header``'s struct Field."""
+    new = step._field(SPEC)
+    if "uint32_t p[NL];" not in open(header).read():
+        return new
+    f = [0] * L
+    for off, digit in SPEC.fold_terms:
+        f[off] += digit
+    return OldField((ctypes.c_uint32 * 16)(*SPEC.to_limbs(SPEC.p)),
+                    (ctypes.c_uint32 * 16)(*f), new.slack, new.pw, new.fw)
+
+
+def launcher(lib: str, name: str, o: dict, lv, half: int, fld):
+    """A function that launches kernel ``name`` of ``lib`` once, with the
+    field constants ``fld``."""
     fn = getattr(ctypes.CDLL(lib), name)
     n_ptrs, n_ints = step._SIGNATURES[name]
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -182,7 +208,6 @@ def launcher(lib: str, name: str, o: dict, lv, half: int):
     fn.argtypes = [ptr] * (1 + n_ptrs) + [i32] * n_ints + [ptr]
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in kernel_args(name, o, lv, half)]
-    fld = step._field(SPEC)
 
     def run():
         err = fn(ctypes.byref(fld), *args,
@@ -223,6 +248,10 @@ def main(argv) -> int:
         if os.path.exists(os.path.join(d, os.path.basename(src))) else src
         for src in _build.KERNEL_SOURCES] for d in dirs}
     jobs["current"] = _build.KERNEL_SOURCES
+    header = {k: next((h for h in (os.path.join(d, "word_arith.cuh"),)
+                       if os.path.exists(h)), _build.KERNEL_HEADERS[0])
+              for k, d in zip(jobs, dirs)}
+    header["current"] = _build.KERNEL_HEADERS[0]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         futs = {k: pool.submit(build, f"ab_{i}", srcs)
@@ -241,7 +270,7 @@ def main(argv) -> int:
     cases = [(name, HALF) for name in step._SIGNATURES] + [
         (name, FAR_HALF) for name in ("ecfft_fused_bf1", "ecfft_fused_bf2")]
     for name, half in cases:
-        runs = {k: launcher(lib, name, o, lv, half)
+        runs = {k: launcher(lib, name, o, lv, half, field_for(header[k]))
                 for k, lib in libs.items()
                 if hasattr(ctypes.CDLL(lib), name)}
         times = [(k, ms(runs[k]), smi()) for k in order if k in runs]

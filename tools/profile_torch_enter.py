@@ -6,7 +6,9 @@ Usage, from the repository root:
     python3 tools/profile_torch_enter.py [method] [n] [batch] [field]
 
 (default: enter 65536 256 secp256k1, the main path; ``field`` may be
-``m31``). ``method`` is one of the
+``m31`` or a general prime of ``chip_smoke.py``'s phase 10: ``cios16``,
+``stark``, ``fold4``, ``band16``, ``cios3``, ``cios13``, registered from
+the curves that script hardcodes). ``method`` is one of the
 FFTree's: enter, exit, extend, mextend, degree, redc_z0, redc_z1,
 modular_reduce, vanish; or general_redc_z0, general_modular_reduce for a
 modulus table given at run time (a seeded random one). ``n`` is the
@@ -51,6 +53,10 @@ def main() -> int:
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 1 << 16
     batch = int(sys.argv[3]) if len(sys.argv) > 3 else 256
     field = sys.argv[4] if len(sys.argv) > 4 else "secp256k1"
+    if field not in ("secp256k1", "m31"):
+        import chip_smoke  # registers its general fields as gp_<label>
+
+        field = f"gp_{field}" if field in chip_smoke.CURVES else field
     if not torch.cuda.is_available():
         print("profile_torch_enter: no CUDA device", file=sys.stderr)
         return 1
@@ -62,11 +68,16 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def limbs(*shape):  # canonical: M31 values, or a top limb below p's
-        if tree.spec.num_limbs == 1:
-            return torch.randint(0, tree.spec.p, (*shape, 1), generator=gen,
+        spec = tree.spec
+        if spec.num_limbs == 1:
+            return torch.randint(0, spec.p, (*shape, 1), generator=gen,
                                  device=dev, dtype=torch.int32)
-        return torch.randint(0, 1 << 15, (*shape, 16), generator=gen,
-                             device=dev, dtype=torch.int32)
+        x = torch.randint(0, 1 << 16, (*shape, spec.num_limbs),
+                          generator=gen, device=dev, dtype=torch.int32)
+        x[..., -1] = torch.randint(0, spec.to_limbs(spec.p)[-1], shape,
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+        return x
 
     x = limbs(batch, n)
     tables = ()

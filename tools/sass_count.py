@@ -23,11 +23,12 @@ lower bound:
   division's slow path, never taken for 32-bit operands), else the side
   ``kind`` picks in a cascade (a 2-mul level runs the side with more FMA
   instructions), else the shorter side;
-- a loop whose body skips eight or more branch-free blocks is the
-  reduction's fold loop: it runs ``rounds`` times, and of its skipped
-  blocks (one per digit of the fold multiplier F: 16 limbs in
-  field_arith.cuh, 8 words in word_arith.cuh) ``nz`` run each round, one
-  per nonzero digit of F;
+- a loop whose body skips ``fold_blocks`` or more branch-free blocks is
+  the reduction's fold loop (``reduce`` in word_arith.cuh: one block per
+  word of the fold multiplier F, so ``fold_blocks`` is the form's word
+  count, 8 at 16 limbs): it runs ``rounds`` times, and of its skipped
+  blocks ``nz`` run each round, one per nonzero word of F. The CIOS form
+  has no such loop: its rounds are unrolled;
 - a loop with a barrier in it is a cascade's level loop: it runs once
   per entry of ``kinds``, with that entry as ``kind``;
 - any other loop runs once (the subtraction of p·2^j for a prime with
@@ -41,7 +42,8 @@ lower bound:
   followed; the walk ends at an unconditional ``EXIT`` or a backward
   unconditional branch.
 
-Run it on a dump: ``python3 tools/sass_count.py dump.sass [rounds nz]``.
+Run it on a dump: ``python3 tools/sass_count.py dump.sass [rounds nz
+[fold_blocks]]``.
 """
 
 from __future__ import annotations
@@ -96,10 +98,11 @@ def classify(inst: Inst) -> tuple[str, ...]:
 
 
 class _Walk:
-    def __init__(self, insts: list[Inst], rounds: int, nz: int):
+    def __init__(self, insts: list[Inst], rounds: int, nz: int,
+                 fold_blocks: int = 8):
         self.insts = insts
         self.at = {ins.addr: i for i, ins in enumerate(insts)}
-        self.rounds, self.nz = rounds, nz
+        self.rounds, self.nz, self.fold_blocks = rounds, nz, fold_blocks
         self.step = insts[1].addr - insts[0].addr if len(insts) > 1 else 16
         # loops: head address → the back edge's address (the outermost)
         self.loops = {}
@@ -199,7 +202,7 @@ class _Walk:
                 c += self.count(head, end, k, kinds)
             return c
         n_skip = sum(self.skip_block(b) for b in body)
-        if n_skip >= 8:
+        if n_skip >= self.fold_blocks:
             one = self.count(head, end, kind, kinds, n_skip)
             return collections.Counter(
                 {k: v * self.rounds for k, v in one.items()})
@@ -207,11 +210,12 @@ class _Walk:
 
 
 def thread_counts(insts: list[Inst], rounds: int, nz: int,
-                  kinds=()) -> dict[str, float]:
+                  kinds=(), fold_blocks: int = 8) -> dict[str, float]:
     """{"fma", "alu", "all"}: the instructions one thread issues (see the
     module docstring). ``kinds``: a cascade's levels, 0 (1-mul) or 1
-    (2-mul) each."""
-    w = _Walk(insts, rounds, nz)
+    (2-mul) each; ``fold_blocks``: the skipped blocks that mark a fold
+    loop (the form's word count)."""
+    w = _Walk(insts, rounds, nz, fold_blocks)
     c = w.count(insts[0].addr, insts[-1].addr + w.step, None, list(kinds))
     return {k: float(c[k]) for k in ("fma", "alu", "all")}
 
@@ -230,14 +234,15 @@ def loads_before_first_product(insts: list[Inst]) -> tuple[int, int]:
 def main(argv) -> int:
     sass = open(argv[1]).read()
     rounds, nz = (int(argv[2]), int(argv[3])) if len(argv) > 3 else (2, 2)
+    blocks = int(argv[4]) if len(argv) > 4 else 8
     for name, insts in functions(sass).items():
         if not insts:
             continue
-        base = thread_counts(insts, rounds, nz)
+        base = thread_counts(insts, rounds, nz, (), blocks)
         print(name)
         print(f"  no level: {base}")
         for k in (0, 1):
-            one = thread_counts(insts, rounds, nz, [k])
+            one = thread_counts(insts, rounds, nz, [k], blocks)
             if one != base:
                 print(f"  + a level of kind {k}: "
                       f"{ {x: one[x] - base[x] for x in one} }")
