@@ -189,8 +189,12 @@ FOLD_ROUNDS = 2
 # shape (tens of GB of int64 temporaries freed) the next launches run up
 # to 8% slower for a few tens of ms (tools/ab_step_kernels.py)
 SETTLE_S = 0.25
-CASCADE_LANES, CASCADE_THREADS = 4, 512  # CL and CT in fused_kernels.cu
-M31_CASCADE_LANES, M31_CASCADE_THREADS = 8, 1024  # M31_CL, M31_CT
+# a cascade's threads per (128-row tile, group of lanes): CL and CT of
+# fused_kernels.cu's cascade_kernel (three words or more), and a warp per
+# wc::lanes(NW) lanes in the warp design of warp_cascade.cuh (M31 and the
+# word forms of one word: 8 lanes; of two words: 4)
+CASCADE_LANES, CASCADE_THREADS = 4, 512
+WARP_CASCADE_LANES, WARP_CASCADE_THREADS = {1: 8, 2: 4}, 32
 STEP_SRC = "ecfft_tpu_torch/csrc/step_kernels.cu"
 FUSED_SRC = "ecfft_tpu_torch/csrc/fused_kernels.cu"
 M31_SRC = "ecfft_tpu_torch/csrc/m31_kernels.cu"
@@ -213,8 +217,9 @@ UNROLLED_KERNELS = ("aff1s_ip", "muladd1", "muladd2", "fused_cascade",
                     "fused_bf1", "fused_bf2")
 # the SASS function of each wrapper's kernel in a word form's library
 # (step_kernels.cu, fused_kernels.cu: muladd1/2 launch step_kernel<1>/<2>,
-# the kernels of aff1g/aff2g) and in the M31 form's (m31_kernels.cu); each
-# form has a library of its own
+# the kernels of aff1g/aff2g; the cascade of one or two words
+# word_warp_cascade, :func:`sass_names`) and in the M31 form's
+# (m31_kernels.cu); each form has a library of its own
 SASS_NAMES = {"aff1s_ip": "step_kernelILi0E", "aff1g_ip": "step_kernelILi1E",
               "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
               "muladd2": "step_kernelILi2E", "mulss": "step_kernelILi3E",
@@ -225,7 +230,7 @@ M31_SASS_NAMES = {
     "aff2g_ip": "m31_step_kernelILi2E", "muladd1": "m31_step_kernelILi1E",
     "muladd2": "m31_step_kernelILi2E", "mulss": "m31_step_kernelILi3E",
     "fused_bf1": "m31_pair_kernelILb0E", "fused_bf2": "m31_pair_kernelILb1E",
-    "fused_cascade": "m31_cascade_kernel"}
+    "fused_cascade": "m31_warp_cascade"}
 # the forms phase 2 builds: secp256k1's, M31's and phase 10's
 FORMS = ("fold16", "m31", "cios16", "fold4", "cios3", "cios13")
 SASS = {}  # form → {wrapper: its kernel's SASS instructions} (phase 2)
@@ -327,6 +332,21 @@ def read_counts(spec=SPEC):
 # ------------------------------------------------------------ the bounds
 
 
+def warp_cascade(form: str) -> bool:
+    """The form's cascade is the warp design of warp_cascade.cuh: M31's,
+    and a word form's of one or two words (at most 4 limbs)."""
+    return form == "m31" or int(form[4:]) <= 4
+
+
+def sass_names(form: str) -> dict:
+    """Each wrapper's kernel's SASS function name in ``form``'s library."""
+    if form == "m31":
+        return M31_SASS_NAMES
+    if warp_cascade(form):
+        return {**SASS_NAMES, "fused_cascade": "word_warp_cascade"}
+    return SASS_NAMES
+
+
 def kernel_sass(lib: str, form: str) -> dict:
     """Each wrapper's kernel in ``form``'s library as SASS instructions
     (``cuobjdump -sass``)."""
@@ -334,7 +354,7 @@ def kernel_sass(lib: str, form: str) -> dict:
     funcs = sass_count.functions(subprocess.run(
         [tool, "-sass", lib], capture_output=True, text=True,
         check=True).stdout)
-    names = M31_SASS_NAMES if form == "m31" else SASS_NAMES
+    names = sass_names(form)
     found = {k: insts for k, pat in names.items()
              for name, insts in funcs.items() if pat in name}
     check(set(found) == set(names), f"{form}: SASS functions found: "
@@ -349,7 +369,7 @@ def kernel_resources(lib: str, form: str) -> list:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     lines = subprocess.run([tool, "-res-usage", lib], capture_output=True,
                            text=True, check=True).stdout.splitlines()
-    names = M31_SASS_NAMES if form == "m31" else SASS_NAMES
+    names = sass_names(form)
     out = []
     for i, line in enumerate(lines[:-1]):
         if line.strip().startswith("Function ") and "REG:" in lines[i + 1]:
@@ -378,15 +398,16 @@ def thread_work(kind, A, B, kinds=(), spec=SPEC):
     on a window of A rows and B lanes, along the path this data takes
     (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one block
     per nonzero word of F in each)."""
-    m31 = fd.is_m31(spec)
-    per = sass_count.thread_counts(SASS[step.kernel_form(spec)][kind],
-                                   FOLD_ROUNDS, fold_nonzero(spec), kinds,
+    m31, form = fd.is_m31(spec), step.kernel_form(spec)
+    per = sass_count.thread_counts(SASS[form][kind], FOLD_ROUNDS,
+                                   fold_nonzero(spec), kinds,
                                    max(words(spec), 1))
-    # one thread an element (an M31 pair level: a pair): a cascade's
-    # blocks are always full, and the idle threads of a ragged block issue
-    # next to nothing
+    # one thread an element (an M31 pair level: a pair; the warp design's
+    # cascade: 4 rows x 8 or 4 lanes): a cascade's blocks are always full, and
+    # the idle threads of a ragged block issue next to nothing
     if kind == "fused_cascade":
-        lanes, threads = ((M31_CASCADE_LANES, M31_CASCADE_THREADS) if m31
+        lanes, threads = ((WARP_CASCADE_LANES[max(words(spec), 1)],
+                           WARP_CASCADE_THREADS) if warp_cascade(form)
                           else (CASCADE_LANES, CASCADE_THREADS))
         threads *= (A // unrolled.TW) * -(-B // lanes)
     elif m31 and kind in ("fused_bf1", "fused_bf2"):

@@ -51,9 +51,10 @@
 // is race-free. The partner is the global xor t ^ h, which the wrapper
 // checks lands at t + h (start % 2h == 0).
 //
-// Cascades: one block of CT = 512 threads per (tile of TW <= 128 rows,
-// group of CL = 4 lanes), one thread per element of the tile. The tile
-// lives in shared memory for the whole run, packed into 32-bit words on
+// Cascades of three words or more (NW >= 3, cascade_kernel): one block
+// of CT = 512 threads per (tile of TW <= 128 rows, group of CL = 4
+// lanes), one thread per element of the tile. The tile lives in shared
+// memory for the whole run, packed into 32-bit words on
 // the way in and unpacked on the way out, in two copies (ping-pong): a
 // level reads copy `cur` (its row and row r ^ h) and writes copy cur ^ 1,
 // so one barrier per level keeps the next level from reading a row before
@@ -65,10 +66,15 @@
 // (8 rows at an odd multiple of 4 words apart cover the 8 groups of 4
 // banks), for its own rows and for the rows r ^ h alike; NW = 8 pads to 36
 // words, NW = 7 needs no pad. 2 x 128 x RS x 4 bytes of shared memory
-// (36,864 at NW 8, 12,288 at NW 2) and at most 64 registers a thread: two
+// (36,864 at NW 8) and at most 64 registers a thread: two
 // blocks (32 warps) per SM at NW 8, at the price of a few spilled words,
 // which cost less than the warps a larger register budget would take away
-// (PERF.md, findings); at NW 2 the threads (four blocks) are the limit.
+// (PERF.md, findings). At one or two words an element a thread of that
+// design carries too little work to pay for a barrier and a coefficient
+// load per level, so those forms ("fold4", "cios3", a 2-limb prime) take
+// word_warp_cascade instead, the design of warp_cascade.cuh: levels in
+// registers and warp shuffles, no barrier between levels (the launcher
+// picks it at compile time).
 //
 // The kernels allocate nothing and launch on the caller's stream; each
 // launcher returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -77,6 +83,7 @@
 #include <cuda_runtime.h>
 
 #include "levels.cuh"
+#include "warp_cascade.cuh"
 #include "word_arith.cuh"
 
 constexpr int BF_THREADS = 128;           // pair-level threads: one an element
@@ -211,6 +218,17 @@ cascade_kernel(Field fd, Levels lv, const int32_t* __restrict__ cw,
   }
 }
 
+// The cascade of one or two words an element (warp_cascade.cuh): V
+// lanes a thread, rows t + 32 j of a 128-row chunk a warp
+template <int V>
+__global__ void __launch_bounds__(wc::MAX_THREADS)
+word_warp_cascade(Field fd, Levels lv, const int32_t* __restrict__ cw,
+                  const int32_t* __restrict__ aw, int32_t* state, int start,
+                  int A, int B, int vec) {
+  wc::cascade<wc::WordArith<NL, MONT>, V>(fd, lv, cw, aw, state, start, A,
+                                          B, vec != 0);
+}
+
 template <bool TWO>
 int launch_bf(const Field* fd, const int32_t* a, const int32_t* c,
               int32_t* state, int start, int half, int A, int B,
@@ -224,6 +242,30 @@ int launch_bf(const Field* fd, const int32_t* a, const int32_t* c,
   pair_kernel<TWO><<<grid, BF_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       *fd, a, c, state, start, half, A, B, lg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A cascade in the design of the form's word count W (= NW): the warp
+// design of warp_cascade.cuh at one or two words, else cascade_kernel
+template <int W>
+int launch_cascade(const Field* fd, const Levels* lv, const int32_t* c,
+                   const int32_t* a, int32_t* state, int start, int tw,
+                   int A, int B, cudaStream_t stream) {
+  if constexpr (W <= 2) {
+    constexpr int V = wc::lanes(W);
+    if (!wc::levels_ok(*lv, tw) || A <= 0 || B <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const wc::Grid g = wc::grid(A, B, V);
+    word_warp_cascade<V><<<static_cast<unsigned>(g.chunks) * g.per_chunk,
+                           g.warps * wc::WARP, wc::shared_bytes(*lv, W),
+                           stream>>>(*fd, *lv, c, a, state, start, A, B,
+                                     wc::vectors(B, state));
+  } else {
+    const int64_t blocks =
+        static_cast<int64_t>(A / tw) * ((B + CL - 1) / CL);
+    cascade_kernel<<<static_cast<unsigned>(blocks), CT, 0, stream>>>(
+        *fd, *lv, c, a, state, start, tw, A, B);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,12 +291,8 @@ int ecfft_fused_cascade(const Field* fd, const Levels* lv, const int32_t* c,
   if (lv->k < 1 || lv->k > MAX_LEVELS || tw < 2 || tw > MAX_TW ||
       A % tw != 0 || fd->nw != NW || fd->mont != MONT)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks =
-      static_cast<int64_t>(A / tw) * ((B + CL - 1) / CL);
-  cascade_kernel<<<static_cast<unsigned>(blocks), CT, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      *fd, *lv, c, a, state, start, tw, A, B);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cascade<NW>(fd, lv, c, a, state, start, tw, A, B,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -53,14 +53,14 @@
 //   steps' threads over the pairs: it reads both elements (and both
 //   coefficient words) before it writes either, so the update in place
 //   needs no barrier.
-// - m31_cascade_kernel: one block of 1024 threads per (tile of tw <= 128
-//   rows, group of 8 lanes), one thread per element. The tile lives in
-//   shared memory for the whole run, in two copies (ping-pong, 8 KB): a
-//   level reads copy `cur` (its row and row r ^ h) and writes copy cur ^ 1,
-//   so one barrier per level suffices. A warp holds 4 rows x 8 lanes, 32
-//   consecutive words, for its own rows and (h >= 4 keeps, h < 4 permutes
-//   them) for the rows r ^ h alike: no bank conflict. Each level's
-//   coefficient words are loaded before the barrier that precedes it.
+// - m31_warp_cascade: the design of warp_cascade.cuh on one word and
+//   m31::mul_add / mul_add2. A warp holds a chunk of 128 window rows x 8
+//   lanes in registers for the whole run, lane t rows t + 32 j: levels of
+//   xor 1 .. 16 are shuffles, 32 and 64 swaps of register rows, with no
+//   barrier and no shared-memory round trip of the tile between levels;
+//   the run's coefficient words are staged once a block (up to 8 warps on
+//   one chunk) in shared memory before the first level. A row's 8 lanes
+//   are one 32-byte sector, read and written as two 16-byte vectors.
 //
 // The kernels allocate nothing and launch on the caller's stream; each
 // launcher returns cudaGetLastError() (or cudaErrorInvalidValue for
@@ -70,11 +70,9 @@
 
 #include "levels.cuh"
 #include "m31_arith.cuh"
+#include "warp_cascade.cuh"
 
 constexpr int M31_THREADS = 256;          // step and pair blocks
-constexpr int M31_TW = 128;               // largest cascade tile
-constexpr int M31_CL = 8;                 // lanes per cascade block
-constexpr int M31_CT = M31_TW * M31_CL;   // cascade threads: one an element
 
 namespace {
 
@@ -161,45 +159,17 @@ m31_pair_kernel(const int32_t* __restrict__ aw,
   }
 }
 
-__global__ void __launch_bounds__(M31_CT)
-m31_cascade_kernel(Levels lv, const int32_t* __restrict__ cw,
-                   const int32_t* __restrict__ aw, int32_t* state, int start,
-                   int tw, int A, int B) {
-  __shared__ uint32_t tile[2][M31_CT];
-  const int groups = (B + M31_CL - 1) / M31_CL;
-  const int g = blockIdx.x / groups;  // the tile within the window
-  const int b0 = (blockIdx.x - g * groups) * M31_CL;
-  const int r = threadIdx.x / M31_CL, l = threadIdx.x % M31_CL;
-  const bool live = r < tw && b0 + l < B;
-  const int64_t q = static_cast<int64_t>(g) * tw + r;  // its window row
-  int32_t* el = state + (start + q) * B + b0 + l;
-  const int slot = r * M31_CL + l;
-  uint32_t c = 0, a = 0;
-  if (live) {
-    tile[0][slot] = static_cast<uint32_t>(*el);
-    c = ldg_word(cw + q);
-    if (lv.kind[0]) a = ldg_word(aw + q);
-  }
-  __syncthreads();
-  int cur = 0, ai = 0;
-#pragma unroll 1  // one level an iteration, as tools/sass_count.py walks it
-  for (int li = 0; li < lv.k; ++li) {
-    const bool two = lv.kind[li] != 0;
-    if (live) {
-      const uint32_t x = tile[cur][slot];
-      const uint32_t xp = tile[cur][(r ^ lv.half[li]) * M31_CL + l];
-      tile[cur ^ 1][slot] = two ? m31::mul_add2(a, x, c, xp)
-                                : m31::mul_add(c, xp, x);
-    }
-    ai += two;
-    if (live && li + 1 < lv.k) {
-      c = ldg_word(cw + static_cast<int64_t>(li + 1) * A + q);
-      if (lv.kind[li + 1]) a = ldg_word(aw + static_cast<int64_t>(ai) * A + q);
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-  if (live) *el = static_cast<int32_t>(tile[cur][slot]);
+// The cascade (warp_cascade.cuh): V lanes a thread, rows t + 32 j of a
+// 128-row chunk a warp. Four blocks (32 warps) an SM, so that one block's
+// loads overlap another's levels: 64 registers and 16 bytes spilled, 10%
+// faster than 71 registers and three blocks (PERF.md, findings)
+template <int V>
+__global__ void __launch_bounds__(wc::MAX_THREADS, 4)
+m31_warp_cascade(Levels lv, const int32_t* __restrict__ cw,
+                 const int32_t* __restrict__ aw, int32_t* state, int start,
+                 int A, int B, int vec) {
+  wc::cascade<wc::M31Arith, V>(wc::M31Arith::Consts{}, lv, cw, aw, state,
+                               start, A, B, vec != 0);
 }
 
 template <int KIND>
@@ -279,14 +249,14 @@ int ecfft_m31_fused_bf2(const int32_t* a, const int32_t* b, int32_t* state,
 int ecfft_m31_fused_cascade(const Levels* lv, const int32_t* c,
                             const int32_t* a, int32_t* state, int start,
                             int tw, int A, int B, void* stream) {
-  if (lv->k < 1 || lv->k > MAX_LEVELS || tw < 2 || tw > M31_TW ||
-      A % tw != 0 || B <= 0)
+  constexpr int V = wc::lanes(1);
+  if (!wc::levels_ok(*lv, tw) || A <= 0 || A % tw != 0 || B <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks =
-      static_cast<int64_t>(A / tw) * ((B + M31_CL - 1) / M31_CL);
-  m31_cascade_kernel<<<static_cast<unsigned>(blocks), M31_CT, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      *lv, c, a, state, start, tw, A, B);
+  const wc::Grid g = wc::grid(A, B, V);
+  m31_warp_cascade<V><<<static_cast<unsigned>(g.chunks) * g.per_chunk,
+                        g.warps * wc::WARP, wc::shared_bytes(*lv, 1),
+                        static_cast<cudaStream_t>(stream)>>>(
+      *lv, c, a, state, start, A, B, wc::vectors(B, state));
   return static_cast<int>(cudaGetLastError());
 }
 

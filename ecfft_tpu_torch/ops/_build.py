@@ -8,10 +8,11 @@ Two kinds of library, each with a plain C interface opened through ctypes:
   - a word form ("fold16", "cios3", ...: the fold or the CIOS reduction at
     a limb count) from ``csrc/step_kernels.cu`` and
     ``csrc/fused_kernels.cu`` (``csrc/word_arith.cuh``,
-    ``csrc/levels.cuh``), compiled with ``-DECFFT_NL=<limbs>
-    -DECFFT_MONT=<0|1>``: ``libecfft_<form>.so``;
+    ``csrc/levels.cuh``, ``csrc/warp_cascade.cuh``), compiled with
+    ``-DECFFT_NL=<limbs> -DECFFT_MONT=<0|1>``: ``libecfft_<form>.so``;
   - the M31 form from ``csrc/m31_kernels.cu`` (``csrc/levels.cuh``,
-    ``csrc/m31_arith.cuh``): ``libecfft_m31.so``.
+    ``csrc/m31_arith.cuh``, ``csrc/warp_cascade.cuh``):
+    ``libecfft_m31.so``.
 
   The sources include no PyTorch header, so a form builds in seconds. A
   form is built where a CUDA tensor of its field first reaches a kernel's
@@ -43,7 +44,8 @@ KERNEL_SOURCES = [os.path.join(_CSRC, f)
                   for f in ("step_kernels.cu", "fused_kernels.cu")]
 M31_SOURCES = [os.path.join(_CSRC, "m31_kernels.cu")]
 KERNEL_HEADERS = [os.path.join(_CSRC, f)
-                  for f in ("word_arith.cuh", "m31_arith.cuh", "levels.cuh")]
+                  for f in ("word_arith.cuh", "m31_arith.cuh", "levels.cuh",
+                            "warp_cascade.cuh")]
 NATIVE_SOURCE = os.path.join(os.path.dirname(_PKG), "native",
                              "ecfft_native.cpp")
 CUDA_ARCH = "-gencode=arch=compute_90a,code=sm_90a"

@@ -4,7 +4,9 @@ and ENTER/EXIT on the card, by either executor, against the CPU's; the
 nine M31 forms likewise, and M31's algorithms against the native engine
 and the CPU; the general prime's forms (the fold form at 4 and 16 limbs,
 the CIOS form at 3, 13 and 16 limbs, slack 0 among them) likewise, and
-its algorithms on the card against the CPU's.
+its algorithms on the card against the CPU's; the warp cascade
+(``csrc/warp_cascade.cuh``) of M31 and of the word forms of one and two
+words likewise, at ragged lane counts, a tile of 8 rows and 16 levels.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -206,7 +208,8 @@ def test_algorithms_on_card_match_cpu(card, monkeypatch):
 
 
 # (form, TW, half or halves, kinds): pair levels one and two tiles apart,
-# and cascades of mixed kinds, at the production tile and at TW = 8. A
+# and cascades of mixed kinds (16 levels, a launch's most, among them),
+# at the production tile and at TW = 8. A
 # pair-level block holds the smallest power of two of lanes >= B, up to
 # its own size: B = 200 leaves its last lane group ragged, B = 256 none
 FUSED = [("bf1", 128, 128, None), ("bf1", 128, 256, None),
@@ -214,7 +217,9 @@ FUSED = [("bf1", 128, 128, None), ("bf1", 128, 256, None),
          ("bf1", 8, 16, None), ("bf2", 8, 8, None),
          ("cascade", 128, (64, 1, 64), (0, 0, 1)),
          ("cascade", 128, (32, 16, 8, 4, 2, 1), (0, 0, 0, 0, 0, 0)),
-         ("cascade", 8, (4, 1, 2), (1, 0, 1))]
+         ("cascade", 8, (4, 1, 2), (1, 0, 1)),
+         ("cascade", 128, (64, 32, 16, 8, 4, 2, 1) * 2 + (32, 1),
+          (0,) * 7 + (1,) + (0,) * 6 + (1, 0))]
 
 
 @pytest.mark.parametrize("B", [1, 5, 64, 200, 256])
@@ -560,3 +565,40 @@ def test_general_algorithms_on_card_match_cpu(card, monkeypatch, name):
                                                    *unrolled.FUSED_WRAPPERS)]
         assert sum(after) > sum(before) and after[5] > before[5], ex
 
+
+# the warp cascade (csrc/warp_cascade.cuh) of each form it takes: M31's,
+# and the word forms of one and two words: M61 ("fold4"), the CIOS primes
+# of 3 and 2 limbs, and a 2-limb fold prime
+FEW = [M31] + [spec_for_prime(p, name) for name, p in (
+    ("m61", (1 << 61) - 1), ("cios3", 0xff8000000f),
+    ("cios2", 3 * (1 << 30) + 1), ("fold2", (1 << 32) - 5))]
+
+
+@pytest.mark.parametrize("B", [1, 5, 64, 200, 256])
+@pytest.mark.parametrize("tw,halves,kinds",
+                         [c[1:] for c in FUSED if c[0] == "cascade"])
+@pytest.mark.parametrize("spec", FEW, ids=lambda s: s.name)
+def test_warp_cascade_matches_plain_version(card, monkeypatch, spec, tw,
+                                            halves, kinds, B):
+    """The cascades of FUSED on each form of the warp design, against the
+    plain version bit for bit, rows outside the window untouched: ragged
+    lane groups (B = 1, 5, 200), A = 32 at TW = 8 (a chunk cut by the
+    window's end), 16 levels."""
+    monkeypatch.setattr(unrolled, "TW", tw)
+    gen = torch.Generator().manual_seed(tw + B)
+    draw = ((lambda *sh: _m31(gen, *sh)) if fd.is_m31(spec)
+            else (lambda *sh: _general(spec, gen, *sh)))
+    A, start = 4 * tw, 2 * tw
+    cw, aw = draw(len(halves), A), draw(max(sum(kinds), 1), A)
+    state = draw(start + A + tw, B).permute(0, 2, 1).contiguous()
+    want = state.clone()
+    unrolled.fused_cascade(spec, want, cw, aw, start, halves, kinds)
+    got = state.to(card)
+    key = step.kernel_form(spec)
+    before = unrolled.fused_cascade.launches[key]
+    unrolled.fused_cascade(spec, got, cw.to(card), aw.to(card), start,
+                           halves, kinds)
+    torch.cuda.synchronize()
+    assert unrolled.fused_cascade.launches[key] == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, state)

@@ -4,10 +4,12 @@ skippable blocks, and a cascade's level loop with a two-way branch per
 level kind; and the shapes of the kernels on 32-bit words: a fold loop
 behind a guard followed by the subtraction loop, and a ping-pong
 cascade's level loop (one barrier, the element behind a guard, the fold
-loop nested in it, the next level's A rows in a skippable block), and a
-pair level's kernel (its loads and shared stores behind the guard of the
-ragged edge, one barrier, the partner's words from shared memory, one or
-two word products, the fold and subtraction loops). Counts are exact."""
+loop nested in it, the next level's A rows in a skippable block), the
+warp cascade's level loop (shuffles and no barrier, a branch on the
+level's xor whose sides do the same products), and a pair level's
+kernel (its loads and shared stores behind the guard of the ragged edge,
+one barrier, the partner's words from shared memory, one or two word
+products, the fold and subtraction loops). Counts are exact."""
 
 import pytest
 
@@ -114,6 +116,46 @@ WORD_CASCADE += ["@P4 BRA @11>",                            # 36: back edge
                  "BRA @46>"]
 
 
+# the warp cascade's level loop (csrc/warp_cascade.cuh): no barrier in
+# it, a two-way branch on the level's xor (register rows, h >= 32: picks
+# and shuffles only where h % 32 != 0; or shuffles), each side a two-way
+# branch on the level's kind; the staging barrier stands before the loop
+WARP_CASCADE = ["S2R R0, SR_TID.X",                          # 0
+                "STS [R0], R1",                              # 1: staged rows
+                "BAR.SYNC.DEFER_BLOCKING 0x0",               # 2
+                "ISETP.GE.U32.AND P0, PT, R44, 0x3f, PT",    # 3: level loop
+                "@!P0 BRA @20>",                             # 4: h < 32
+                "@P1 BRA @13>",                              # 5: rows, kind 1
+                "SEL R53, R51, R54, !P5",                    # 6: picks
+                "SEL R52, R54, R51, !P5",
+                "SEL R51, R50, R55, !P4",
+                "@!P2 BRA @11>",                             # 9: m = 0
+                "SHFL.BFLY PT, R53, R53, R48, 0x1f",
+                "IMAD.WIDE.U32 R56, R49, R53, R56",          # 11
+                "BRA @29>",
+                "SEL R53, R51, R54, !P5",                    # 13: kind 1
+                "SEL R52, R54, R51, !P5",
+                "@!P2 BRA @17>",                             # 15: m = 0
+                "SHFL.BFLY PT, R53, R53, R48, 0x1f",
+                "IMAD.WIDE.U32 R56, R49, R53, R56",          # 17
+                "IMAD.WIDE.U32 R58, R50, R52, R56",
+                "BRA @29>",
+                "@P1 BRA @25>",                              # 20: shuffles
+                "SHFL.BFLY PT, R53, R53, R48, 0x1f",         # kind 0
+                "IMAD.WIDE.U32 R56, R49, R53, R56",
+                "IADD3 R57, R57, R55, RZ",
+                "BRA @29>",
+                "SHFL.BFLY PT, R53, R53, R48, 0x1f",         # 25: kind 1
+                "IMAD.WIDE.U32 R56, R49, R53, R56",
+                "IMAD.WIDE.U32 R58, R50, R52, R56",
+                "IADD3 R57, R57, R55, RZ",
+                "IADD3 R2, R2, 0x1, RZ",                     # 29: the join
+                "@P3 BRA @3>",                               # back edge
+                "STG.E desc[UR4][R8.64], R1",
+                "EXIT",
+                "BRA @33>"]
+
+
 def _pair(two):
     """A pair level's kernel, 1-mul or 2-mul: (lines, loads, products)."""
     n = 2 if two else 1
@@ -197,6 +239,24 @@ def test_word_cascade_level_runs_element_fold_and_one_barrier(kinds, want):
     BAR, LDS, STG, EXIT."""
     (insts,) = sass_count.functions(_sass("cascade",
                                           WORD_CASCADE)).values()
+    assert sass_count.thread_counts(insts, 2, 2, kinds) == want
+
+
+@pytest.mark.parametrize("kinds,want", [
+    ((), {"fma": 0, "alu": 0, "all": 5}),
+    ((0,), {"fma": 1, "alu": 3, "all": 14}),
+    ((1,), {"fma": 2, "alu": 3, "all": 14}),
+    ((0, 1, 0), {"fma": 4, "alu": 9, "all": 32})])
+def test_warp_cascade_level_loop_runs_per_level_without_a_barrier(kinds,
+                                                                  want):
+    """The loop holds shuffles and no barrier: still the level loop, run
+    once per level by its kind. Per level: ISETP, the xor's branch, then
+    the shorter of its two sides, which do the same products (the
+    shuffle side: the kind's branch, SHFL, 1 or 2 IMAD.WIDEs, IADD3, the
+    jump to the join; the register-row side has three picks more), the
+    join's IADD3 and the back edge. Outside: S2R, STS, BAR, STG, EXIT."""
+    (insts,) = sass_count.functions(_sass("warp_cascade",
+                                          WARP_CASCADE)).values()
     assert sass_count.thread_counts(insts, 2, 2, kinds) == want
 
 

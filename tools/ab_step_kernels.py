@@ -1,40 +1,51 @@
 #!/usr/bin/env python3
-"""Time the port's nine kernels from an older source tree and the current
-one, in turns, on one card.
+"""Time the port's nine kernels of one form from older source trees and
+the current one, in turns, on one card.
 
 Usage, from the repository root, with the kernel sources of an earlier
-commit unpacked into a directory (``step_kernels.cu``, ``fused_kernels.cu``
-and the headers they include)::
+commit unpacked into a directory (the form's ``.cu`` files and the
+headers they include)::
 
-    mkdir -p OLD && for f in step_kernels.cu fused_kernels.cu \\
-        word_arith.cuh levels.cuh; do \\
+    mkdir -p OLD && for f in step_kernels.cu fused_kernels.cu \
+        m31_kernels.cu word_arith.cuh m31_arith.cuh levels.cuh; do \
         git show COMMIT:ecfft_tpu_torch/csrc/$f > OLD/$f; done
 
 (and ``field_arith.cuh`` from a commit that still has it)
-    python3 tools/ab_step_kernels.py OLD [MORE_DIRS ...]
+    python3 tools/ab_step_kernels.py [--form FORM] [--only NAME] OLD \
+        [MORE_DIRS ...]
 
-Builds one library from each directory and one from the current sources
-(``ops/_build.py``'s ``KERNEL_SOURCES``), each with ``nvcc`` alone into
-``ecfft_tpu_torch/_build/ab``, all builds started together. A directory
-may hold a variant of one source only: the files it lacks are the current
-ones. Every build is secp256k1's form, "fold16" (``-DECFFT_NL=16
--DECFFT_MONT=0``, which sources older than the forms ignore). Prints what
-``-Xptxas -v`` says of each kernel of each build (registers, shared bytes,
-spills). A build whose ``word_arith.cuh`` still declares p's 16-bit limbs
-first in ``struct Field`` (before the general prime) takes that layout
-(:class:`OldField`), any other the current one. Then, at
-the main path's shapes (state W 131200, L 16, B 256, window A 65536;
-seeded random operands, the same for every library), times each kernel
+``FORM`` is the kernel form to build and time (``ops/_build.py``'s
+``form_sources``), each at its main shape in ``chip_smoke.py`` (state W
+131200 rows, window A 65536; seeded random canonical operands, the same
+for every library):
+
+- "fold16" (the default): secp256k1, L 16, B 256;
+- "cios16": the STARK prime's constants, L 16, B 256;
+- "fold4": M61 = 2^61 − 1, L 4, B 1024;
+- "m31": M31, L 1, B 2048 (``m31_kernels.cu``; its entry points take no
+  field constants).
+
+Builds one library from each directory and one from the current sources,
+each with ``nvcc`` alone into ``ecfft_tpu_torch/_build/ab``, all builds
+started together. A directory may hold a variant of one source only: the
+files it lacks are the current ones. A word form's build passes
+``-DECFFT_NL`` and ``-DECFFT_MONT``, which sources older than the forms
+ignore (so only "fold16" is timed from those). Prints what ``-Xptxas
+-v`` says of each kernel of each build (registers, shared bytes, spills).
+A build whose ``word_arith.cuh`` still declares p's 16-bit limbs first in
+``struct Field`` (before the general prime) takes that layout
+(:class:`OldField`), any other the current one. Then times each kernel
 from each library in turns (the directories, the current build, then the
 same in reverse: old, new, new, old for one directory) with CUDA events
 over 20 launches after 0.25 s of warm-up launches, and once more through
 the port's own wrapper (the library as ``ops/step.py`` loads it), with the
 SM clock and power draw read after each. The cascade runs 14 levels
 (halves 64 .. 1 twice, the eighth of kind 1), the pair levels half 128
-and then half 16384. A kernel that an older library lacks (``ecfft_mulss``
-before it was written) is timed from the libraries that have it. Prints
-one line per kernel and shape. Imports nothing of JAX. Needs one CUDA card
-and ``nvcc``.
+and then half 16384. ``--only NAME`` times only the kernels whose entry
+point's name holds NAME (``--only cascade``). A kernel that an older
+library lacks (``ecfft_mulss`` before it was written) is timed from the
+libraries that have it. Prints one line per kernel and shape. Imports
+nothing of JAX. Needs one CUDA card and ``nvcc``.
 """
 
 import ctypes
@@ -49,12 +60,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-from ecfft_tpu_torch.fields.registry import FIELDS  # noqa: E402
+from ecfft_tpu_torch.fields.registry import (FIELDS,  # noqa: E402
+                                             spec_for_prime)
 from ecfft_tpu_torch.ops import _build, step, unrolled  # noqa: E402
 
-SPEC = FIELDS["secp256k1"]
-L = SPEC.num_limbs
-W, A, B = 131200, 65536, 256
+STARK = 0x0800000000000011000000000000000000000000000000000000000000000001
+# form: (a field of that form, lanes B at its main shape)
+FORMS = {"fold16": (FIELDS["secp256k1"], 256),
+         "cios16": (spec_for_prime(STARK), 256),
+         "fold4": (spec_for_prime((1 << 61) - 1), 1024),
+         "m31": (FIELDS["m31"], 2048)}
+SPEC, B = FORMS["fold16"]  # the form main() times (--form)
+W, A = 131200, 65536
 START = W - A - 128  # the step kernels' window
 FSTART, HALF = A, 128  # the fused kernels' window and pair distance
 FAR_HALF = A // 4      # the pair levels' second distance
@@ -63,7 +80,7 @@ KINDS = (0,) * 7 + (1,) + (0,) * 6
 REPS, SETTLE_S = 20, 0.25
 
 
-def build(name: str, sources: list) -> tuple:
+def build(name: str, sources: list, flags: list) -> tuple:
     """(library, one line per kernel of what ``-Xptxas -v`` reports)."""
     from torch.utils import cpp_extension
 
@@ -74,8 +91,7 @@ def build(name: str, sources: list) -> tuple:
                         "nvcc")
     proc = subprocess.run(
         [nvcc, _build.CUDA_ARCH, "-std=c++17", "-O3", "-shared", "-Xptxas",
-         "-v", "-Xcompiler", "-fPIC", "-DECFFT_NL=16", "-DECFFT_MONT=0",
-         "-I",
+         "-v", "-Xcompiler", "-fPIC", *flags, "-I",
          os.path.dirname(_build.KERNEL_SOURCES[0]), "-o", out, *sources],
         capture_output=True, text=True)
     if proc.returncode:
@@ -85,15 +101,15 @@ def build(name: str, sources: list) -> tuple:
 
 def short_name(mangled: str) -> str:
     """``pair_kernelILb0E`` from a mangled kernel name: the identifier
-    that ends in ``_kernel`` and stands behind its own length, with its
-    template argument."""
-    for m in re.finditer(r"_kernel(IL[bi]\dE)?E", mangled):
-        end = m.start() + len("_kernel")
-        for n in range(len("_kernel") + 1, 64):
+    that ends in ``_kernel`` (or ``_cascade``: ``word_warp_cascadeILi8E``)
+    and stands behind its own length, with its template argument."""
+    for m in re.finditer(r"_(kernel|cascade)(IL[bi]\d+E)?E", mangled):
+        end = m.start() + 1 + len(m.group(1))
+        for n in range(len(m.group(1)) + 2, 64):
             name, size = mangled[end - n:end], str(n)
             if (re.fullmatch(r"[a-z]\w*", name)
                     and mangled[:end - n].endswith(size)):
-                return name + (m.group(1) or "")
+                return name + (m.group(2) or "")
     return mangled
 
 
@@ -124,8 +140,12 @@ def smi() -> str:
 def operands(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
+    L = SPEC.num_limbs
 
-    def limbs(*shape):
+    def limbs(*shape):  # canonical: M31 values, or a top limb below p's
+        if L == 1:
+            return torch.randint(0, SPEC.p, (*shape, 1), generator=gen,
+                                 device=dev, dtype=torch.int32)
         x = torch.randint(0, 1 << 16, (*shape, L), generator=gen,
                           device=dev, dtype=torch.int32)
         x[..., -1] = torch.randint(0, SPEC.to_limbs(SPEC.p)[-1], shape,
@@ -187,10 +207,14 @@ class OldField(ctypes.Structure):
 
 
 def field_for(header: str):
-    """The field constants in the layout of ``header``'s struct Field."""
+    """The field constants in the layout of ``header``'s struct Field
+    (None for M31, whose kernels take none)."""
+    if step.kernel_form(SPEC) == "m31":
+        return None
     new = step._field(SPEC)
     if "uint32_t p[NL];" not in open(header).read():
         return new
+    L = SPEC.num_limbs
     f = [0] * L
     for off, digit in SPEC.fold_terms:
         f[off] += digit
@@ -201,17 +225,17 @@ def field_for(header: str):
 def launcher(lib: str, name: str, o: dict, lv, half: int, fld):
     """A function that launches kernel ``name`` of ``lib`` once, with the
     field constants ``fld``."""
-    fn = getattr(ctypes.CDLL(lib), name)
     n_ptrs, n_ints = step._SIGNATURES[name]
+    lead = () if fld is None else (ctypes.byref(fld),)
+    fn = getattr(ctypes.CDLL(lib), name if lead else step._m31_name(name))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.restype = i32
-    fn.argtypes = [ptr] * (1 + n_ptrs) + [i32] * n_ints + [ptr]
+    fn.argtypes = [ptr] * (len(lead) + n_ptrs) + [i32] * n_ints + [ptr]
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in kernel_args(name, o, lv, half)]
 
     def run():
-        err = fn(ctypes.byref(fld), *args,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(*lead, *args, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name} from {lib}: error {err}")
     return run
@@ -235,30 +259,43 @@ def ms(fn) -> float:
 
 
 def main(argv) -> int:
-    dirs = [os.path.abspath(d) for d in argv[1:]]
-    if not torch.cuda.is_available() or not dirs:
+    global SPEC, B
+    args = argv[1:]
+    form, only = "fold16", ""
+    while args and args[0] in ("--form", "--only"):
+        if args[0] == "--form":
+            form = args[1]
+        else:
+            only = args[1]
+        args = args[2:]
+    dirs = [os.path.abspath(d) for d in args]
+    if not torch.cuda.is_available() or not dirs or form not in FORMS:
         print(__doc__, file=sys.stderr)
         return 1
+    SPEC, B = FORMS[form]
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    print(f"form {form}: {SPEC.name}, W {W}, A {A}, L {SPEC.num_limbs}, "
+          f"B {B}")
+    sources, flags = _build.form_sources(form)
     jobs = {os.path.basename(d.rstrip("/")): [
         os.path.join(d, os.path.basename(src))
         if os.path.exists(os.path.join(d, os.path.basename(src))) else src
-        for src in _build.KERNEL_SOURCES] for d in dirs}
-    jobs["current"] = _build.KERNEL_SOURCES
+        for src in sources] for d in dirs}
+    jobs["current"] = sources
     header = {k: next((h for h in (os.path.join(d, "word_arith.cuh"),)
                        if os.path.exists(h)), _build.KERNEL_HEADERS[0])
               for k, d in zip(jobs, dirs)}
     header["current"] = _build.KERNEL_HEADERS[0]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
-        futs = {k: pool.submit(build, f"ab_{i}", srcs)
+        futs = {k: pool.submit(build, f"ab_{form}_{i}", srcs, flags)
                 for i, (k, srcs) in enumerate(jobs.items())}
         built = {k: f.result() for k, f in futs.items()}
     libs = {k: lib for k, (lib, _) in built.items()}
-    step.load_kernels()
+    step.load_kernels(form)
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s")
     for k, (lib, lines) in built.items():
         print(f"{k} ({lib}):\n  " + "\n  ".join(lines))
@@ -269,15 +306,18 @@ def main(argv) -> int:
     order = list(libs) + list(libs)[::-1]
     cases = [(name, HALF) for name in step._SIGNATURES] + [
         (name, FAR_HALF) for name in ("ecfft_fused_bf1", "ecfft_fused_bf2")]
+    entry = step._m31_name if form == "m31" else (lambda name: name)
     for name, half in cases:
+        if only not in name:
+            continue
         runs = {k: launcher(lib, name, o, lv, half, field_for(header[k]))
                 for k, lib in libs.items()
-                if hasattr(ctypes.CDLL(lib), name)}
+                if hasattr(ctypes.CDLL(lib), entry(name))}
         times = [(k, ms(runs[k]), smi()) for k in order if k in runs]
         times.append(("current via the wrapper",
                       ms(wrapper_call(name, o, half)), smi()))
         what = f"{name} half {half}" if "_bf" in name else name
-        print(f"{what}: " + "; ".join(
+        print(f"[{form}] {what}: " + "; ".join(
             f"{k} {t:.4f} ms ({s})" for k, t, s in times), flush=True)
     return 0
 

@@ -3,25 +3,30 @@
 
 Usage, from the repository root:
 
-    python3 tools/profile_torch_enter.py [method] [n] [batch] [field]
+    python3 tools/profile_torch_enter.py [methods] [n] [batch] [field] \
+        [executors]
 
 (default: enter 65536 256 secp256k1, the main path; ``field`` may be
 ``m31`` or a general prime of ``chip_smoke.py``'s phase 10: ``cios16``,
 ``stark``, ``fold4``, ``band16``, ``cios3``, ``cios13``, registered from
-the curves that script hardcodes). ``method`` is one of the
-FFTree's: enter, exit, extend, mextend, degree, redc_z0, redc_z1,
-modular_reduce, vanish; or general_redc_z0, general_modular_reduce for a
-modulus table given at run time (a seeded random one). ``n`` is the
-number of points of the input, on a tree of that size (twice that size
-for extend, mextend and vanish); random evaluations have full degree.
+the curves that script hardcodes). ``methods`` is one of the FFTree's, or
+several joined by commas (``enter,exit``): enter, exit, extend, mextend,
+degree, redc_z0, redc_z1, modular_reduce, vanish; or general_redc_z0,
+general_modular_reduce for a modulus table given at run time (a seeded
+random one). ``n`` is the number of points of the input, on a tree of
+that size (twice that size for extend, mextend and vanish); random
+evaluations have full degree. ``executors`` is ``scan``, ``unrolled`` or
+both joined by a comma (``scan,unrolled``); without it
 ``ECFFT_EXECUTOR=unrolled`` in the environment selects the unrolled
-executor. Builds a tree of the field with the native engine, runs the
-transform once to warm up, then once more under ``torch.profiler``. Prints the wall time of the profiled call
-(fenced by ``torch.cuda.synchronize()``), the device kernels grouped by
-name with their time, share and launches, the device busy share (the
-union of the kernels' intervals over the wall time, so overlapping
-kernels are not counted twice), the host's launches and CPU time, and
-the peak device memory. Imports nothing of JAX.
+executor, as everywhere in the port. Builds a tree of the field with the
+native engine, then for each executor and method: runs the transform
+once to warm up, times three more warm calls (the best wall, fenced by
+``torch.cuda.synchronize()``, as polys/s), then runs it once more under
+``torch.profiler``. Prints the wall time of the profiled call, the
+device kernels grouped by name with their time, share and launches, the
+device busy share (the union of the kernels' intervals over the wall
+time, so overlapping kernels are not counted twice), the host's launches
+and CPU time, and the peak device memory. Imports nothing of JAX.
 """
 
 import collections
@@ -49,10 +54,12 @@ def busy_us(intervals) -> float:
 
 
 def main() -> int:
-    alg = sys.argv[1] if len(sys.argv) > 1 else "enter"
+    algs = (sys.argv[1] if len(sys.argv) > 1 else "enter").split(",")
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 1 << 16
     batch = int(sys.argv[3]) if len(sys.argv) > 3 else 256
     field = sys.argv[4] if len(sys.argv) > 4 else "secp256k1"
+    executors = (sys.argv[5].split(",") if len(sys.argv) > 5 else [
+        os.environ.get("ECFFT_EXECUTOR") or "scan"])
     if field not in ("secp256k1", "m31"):
         import chip_smoke  # registers its general fields as gp_<label>
 
@@ -61,9 +68,8 @@ def main() -> int:
         print("profile_torch_enter: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    general = alg.startswith("general_")
-    method = alg[len("general_"):] if general else alg
-    size = 2 * n if method in ("extend", "mextend", "vanish") else n
+    size = max(2 * n if a.removeprefix("general_") in (
+        "extend", "mextend", "vanish") else n for a in algs)
     tree = build_fftree_native(field, size, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -80,6 +86,20 @@ def main() -> int:
         return x
 
     x = limbs(batch, n)
+    rc = 0
+    for ex in executors:
+        if ex == "unrolled":
+            os.environ["ECFFT_EXECUTOR"] = "unrolled"
+        else:
+            os.environ.pop("ECFFT_EXECUTOR", None)
+        for alg in algs:
+            rc |= profile_one(tree, alg, ex, x, n, batch, field, limbs, dev)
+    return rc
+
+
+def profile_one(tree, alg, ex, x, n, batch, field, limbs, dev) -> int:
+    general = alg.startswith("general_")
+    method = alg[len("general_"):] if general else alg
     tables = ()
     if general:
         a = limbs(n)  # no zero entry to invert
@@ -91,6 +111,12 @@ def main() -> int:
 
     run(x)
     torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -104,8 +130,10 @@ def main() -> int:
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     cpu_ms = sum(e.self_cpu_time_total for e in events
                  if e.device_type == DeviceType.CPU) / 1e3
-    print(f"{alg} {field} n={n} B={batch}: profiled wall {wall * 1e3:.3f} ms on "
-          f"{torch.cuda.get_device_name(0)}")
+    print(f"{alg} {field} n={n} B={batch}, {ex} executor: warm walls "
+          f"{[round(w * 1e3, 3) for w in walls]} ms, best "
+          f"{batch / min(walls):.1f} polys/s; profiled wall "
+          f"{wall * 1e3:.3f} ms on {torch.cuda.get_device_name(0)}")
     if not kernels:
         print("the profiler recorded no device kernels")
         return 1
@@ -122,7 +150,7 @@ def main() -> int:
           f"{busy / 1e3:.3f} ms = {busy / 1e6 / wall:.1%} of the wall")
     print(f"host: {launches} kernel launches, {cpu_ms:.3f} ms CPU self "
           f"time; peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
     return 0
 
 

@@ -21,16 +21,20 @@ lower bound:
 - a two-way branch (``@P BRA T`` with an unconditional ``BRA U`` just
   before T) runs one side: the side without a ``CALL`` (the 64-bit
   division's slow path, never taken for 32-bit operands), else the side
-  ``kind`` picks in a cascade (a 2-mul level runs the side with more FMA
-  instructions), else the shorter side;
+  ``kind`` picks in a cascade where the sides differ in FMA instructions
+  (a 2-mul level runs the side with more), else the shorter side (the
+  warp cascade's shuffle levels against its register-row levels, which
+  do the same products);
 - a loop whose body skips ``fold_blocks`` or more branch-free blocks is
   the reduction's fold loop (``reduce`` in word_arith.cuh: one block per
   word of the fold multiplier F, so ``fold_blocks`` is the form's word
   count, 8 at 16 limbs): it runs ``rounds`` times, and of its skipped
   blocks ``nz`` run each round, one per nonzero word of F. The CIOS form
   has no such loop: its rounds are unrolled;
-- a loop with a barrier in it is a cascade's level loop: it runs once
-  per entry of ``kinds``, with that entry as ``kind``;
+- a loop with a barrier or a warp shuffle (``SHFL``) in it is a
+  cascade's level loop (the barrier per level of cascade_kernel, the
+  shuffles of warp_cascade.cuh's levels): it runs once per entry of
+  ``kinds``, with that entry as ``kind``;
 - any other loop runs once (the subtraction of p·2^j for a prime with
   no slack); a branch-free block that a branch can skip runs if it
   stores to shared or device memory (an element's own work behind the
@@ -188,7 +192,7 @@ class _Walk:
         calls = [any(b.base == "CALL" for b in self.span(*s)) for s in d[:2]]
         if calls[0] != calls[1]:
             return sides[1] if calls[0] else sides[0]
-        if kind is not None:
+        if kind is not None and sides[0]["fma"] != sides[1]["fma"]:
             by_fma = sorted(sides, key=lambda s: s["fma"])
             return by_fma[1] if kind else by_fma[0]
         return min(sides, key=lambda s: s["all"])
@@ -196,7 +200,7 @@ class _Walk:
     def loop(self, head: int, back: int, kind, kinds):
         body = self.span(head, back + self.step)
         end = back + self.step
-        if any(b.base == "BAR" for b in body):
+        if any(b.base in ("BAR", "SHFL") for b in body):
             c = collections.Counter()
             for k in kinds:
                 c += self.count(head, end, k, kinds)
