@@ -8,9 +8,10 @@ stops the run with a non-zero exit:
 
 1. device report: the card, ``nvidia-smi``'s name and power limit, its SM
    count and top SM clock, the CUDA version, ``nvcc`` and ``triton``;
-2. build: the six kernel forms this run takes (``ecfft_tpu_torch/csrc``:
-   secp256k1's "fold16", "m31", and phase 10's "cios16", "fold4", "cios3"
-   and "cios13"), one ``nvcc`` each, all started together, and the native
+2. build: the seven kernel forms this run takes (``ecfft_tpu_torch/csrc``:
+   secp256k1's "fold16", "m31", phase 10's "cios16", "fold4", "cios3"
+   and "cios13", and the one-limb fold form "fold1" of phases 4d, 11 and
+   12), one ``nvcc`` each, all started together, and the native
    engine; then the instructions one thread of each kernel of each form
    issues, per pipe, read from its SASS (``tools/sass_count.py``; for the
    operation bounds), and each kernel's registers, shared bytes and
@@ -39,7 +40,12 @@ stops the run with a non-zero exit:
    field's phase-10 shape: "cios16" with the STARK prime's constants at
    the full width (and the 256-bit prime of slack 0 at the small shapes),
    "fold4" (M61), "band16" (2^256 − 1053 on the "fold16" form), "cios3"
-   and "cios13";
+   and "cios13"; then (4d) the one-limb fold form "fold1" likewise, for
+   64513 (F = 1023, slack 0) with the edge values of 4c and the largest
+   value below 2^16, timed at the window of phase 11's 64513 NTT (A =
+   2^10, B = 256; each launch's device time from a ``torch.profiler``
+   trace, since the host's work between launches outlasts a launch
+   there), and for 97 and 65521 at the small shapes;
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -57,6 +63,15 @@ stops the run with a non-zero exit:
    255, the two executors against each other on the whole batch, its
    launch counts against the schedule's steps and the fusion analysis,
    and timed warm (best of 2, fenced by ``torch.cuda.synchronize()``);
+   8c. persistence on the same tree: ``serialize_fftree`` in both modes,
+   the bytes identical after a deserialize and a reserialize; the npz
+   tables saved and loaded; ``prepare(cache_dir=…)`` on a temporary
+   directory by the deserialized tree (it writes the pool and schedule
+   files) and by the npz tree (it must read them); the ENTER of the whole
+   batch equal to the tree's on the deserialized and the cached trees
+   (and the EXIT on the cached one), and on a tree built on the CPU,
+   prepared there and moved to the card with ``place_on``; each step
+   with its seconds and bytes;
 9. M31: a batch of B = 2048 at n = 2^16 through all eight algorithms on
    both executors (ENTER with its EXIT round trip, then the others as in
    phase 8), each gated bit for bit against the native engine on lanes 0
@@ -70,11 +85,31 @@ stops the run with a non-zero exit:
    VANISH; the STARK prime, 2^256 − 1053 and the CIOS primes of 3 and 13
    limbs at n = 2^10, B = 256, all eight algorithms; every form's nine
    kernels must run;
-11. a JSON line of the kernels (the nine 16-limb forms, whose launches are
-   phases 6–8's, the nine M31 forms, phase 9's, and the nine of each
-   general form, phase 10's, named ``"aff1s_ip[cios16]"`` and so on), the
-   ``nvidia-smi`` line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+11. the classical NTT (``ecfft_tpu_torch.ntt.NTTPlan``) on both
+   executors: the STARK prime at n = 2^16, B = 256 (the "cios16" form),
+   then 64513 at n = 2^10 and 97 at n = 32, B = 256 ("fold1"); gated:
+   intt(ntt(x)) == x on the whole batch, ntt against Horner evaluation in
+   Python ints on lanes 0 and B − 1 (8 root powers at 2^16, all of them
+   below), the executors equal, the launches one 2-mul step a stage plus
+   the state's two Montgomery conversions; forward and inverse timed warm
+   (best of 5), and the STARK NTT's polys/s printed beside phases 6b/7b's
+   secp256k1 ENTER (the reference's benches/comparison.rs);
+12. the one-limb fold prime's tree: 64513 on a curve FIND_CURVE found, at
+   n = 64 (the host's isogeny chain stops there), B = 256, all eight
+   algorithms on both executors as phase 10, with the unrolled tile at 8
+   rows so that n = 64 reaches every fused kernel; gated against the
+   native engine (the JAX package's one-limb product is wrong at this
+   prime); every "fold1" kernel must launch;
+13. the per-op bench suite as a user runs it, in processes of their own
+   that must exit 0: ``python -m ecfft_tpu_torch.bench_suite --field m31
+   --n 2048 --batch 256`` and ``--comparison --batch 128``, their tables
+   printed;
+14. a JSON line of the kernels (the nine 16-limb forms, whose launches are
+   phases 6–8's, the nine M31 forms, phase 9's, the nine of each general
+   form, phase 10's (and phase 11's STARK NTT for "cios16"), and the nine
+   "fold1" forms, phases 11's and 12's; 72 in all, named
+   ``"aff1s_ip[cios16]"`` and so on), the ``nvidia-smi`` line, and last
+   the result line ``{"ok": true, "device": {...}}``.
 """
 
 import collections
@@ -86,6 +121,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -95,8 +131,12 @@ from ecfft_tpu_torch.fields.registry import (FIELDS, register_field,
                                              spec_for_prime)
 from ecfft_tpu_torch import native
 from ecfft_tpu_torch.native import NativeFFTree, native_library
+from ecfft_tpu_torch.ntt import STARK_GENERATOR, STARK_P, NTTPlan
 from ecfft_tpu_torch.ops import _build, emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
+from ecfft_tpu_torch.serialize import deserialize_fftree, serialize_fftree
+from ecfft_tpu_torch.serialize_native import load_tables_npz, save_tables_npz
+from ecfft_tpu_torch.utils.poly import evaluate
 from tools import sass_count
 
 FIELD, N, BATCH, REPS = "secp256k1", 1 << 16, 256, 5
@@ -164,6 +204,10 @@ CURVES = {
          0x1f4c8606415d7202ee1dc7daa9045922f6e6eb5b26f25f6a08),
         (0x7e1e2feb89414c343c1027c4d1c386bbc4cd613e30d8f16adf,
          0xb5e528edf47a8687b256827cba3aee6d657c5a3e3dad290240), 17),
+    # 64513 = 2^16 - 1023: one 16-bit limb, the "fold1" form (F = 1023,
+    # slack 0); #E = 2^10 * 63, and the host's isogeny chain builds trees
+    # up to n = 64 on this curve (phase 12)
+    "fold1": (64513, 17298, 51821, (48076, 63964), (37303, 46450), 10),
 }
 # each field's path (phase 10): n, B, and what runs on both executors
 # ("all": the eight algorithms; "enter": ENTER with its EXIT round trip
@@ -173,6 +217,17 @@ PATHS = {"cios16": (1 << 16, 256, "all"), "fold4": (1 << 16, 1024, "enter"),
          "cios3": (1 << 10, 256, "all"), "cios13": (1 << 10, 256, "all")}
 GSPEC = {label: register_field(f"gp_{label}", *curve)
          for label, curve in CURVES.items()}
+# the classical NTT (phase 11): the reference comparison's STARK prime at
+# the main width, the one-limb fold prime 64513 at n = 2^10, and p = 97 at
+# the JAX package's own test size: (label, p, generator, n, B)
+NTT_PATHS = (("stark", STARK_P, STARK_GENERATOR, 1 << 16, 256),
+             ("fold1 64513", 64513, 5, 1 << 10, 256),
+             ("fold1 97", 97, 5, 32, 256))
+# the one-limb fold prime's tree (phase 12): n = 64 (its curve's chain
+# stops there), B = 256, the unrolled executor's tile at 8 rows so that
+# n = 64 reaches every fused kernel
+FOLD1_N, FOLD1_BATCH, FOLD1_TW = 64, 256, 8
+FOLD1_EDGE_N = 1 << 10  # phase 4d's main shapes: the 64513 NTT's window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
 # sm_90, per SM and clock (the CUDA C++ Programming Guide's throughput
 # table, compute capability 9.0): 64 results of "32-bit integer multiply,
@@ -220,6 +275,9 @@ UNROLLED_KERNELS = ("aff1s_ip", "muladd1", "muladd2", "fused_cascade",
 # the kernels of aff1g/aff2g; the cascade of one or two words
 # word_warp_cascade, :func:`sass_names`) and in the M31 form's
 # (m31_kernels.cu); each form has a library of its own
+# what every kernel function's name of the port holds (the device names
+# in a profiler trace are demangled: ``void step_kernel<2>(...)``)
+KERNEL_BASES = ("step_kernel", "pair_kernel", "cascade")
 SASS_NAMES = {"aff1s_ip": "step_kernelILi0E", "aff1g_ip": "step_kernelILi1E",
               "aff2g_ip": "step_kernelILi2E", "muladd1": "step_kernelILi1E",
               "muladd2": "step_kernelILi2E", "mulss": "step_kernelILi3E",
@@ -231,12 +289,14 @@ M31_SASS_NAMES = {
     "muladd2": "m31_step_kernelILi2E", "mulss": "m31_step_kernelILi3E",
     "fused_bf1": "m31_pair_kernelILb0E", "fused_bf2": "m31_pair_kernelILb1E",
     "fused_cascade": "m31_warp_cascade"}
-# the forms phase 2 builds: secp256k1's, M31's and phase 10's
-FORMS = ("fold16", "m31", "cios16", "fold4", "cios3", "cios13")
+# the forms phase 2 builds: secp256k1's, M31's, phase 10's and the
+# one-limb fold form of phases 11 and 12
+FORMS = ("fold16", "m31", "cios16", "fold4", "cios3", "cios13", "fold1")
 SASS = {}  # form → {wrapper: its kernel's SASS instructions} (phase 2)
 FORM_SPEC = {"fold16": SPEC, "m31": M31, "cios16": GSPEC["cios16"],
              "fold4": GSPEC["fold4"], "cios3": GSPEC["cios3"],
-             "cios13": GSPEC["cios13"]}  # a field of each form
+             "cios13": GSPEC["cios13"],
+             "fold1": GSPEC["fold1"]}  # a field of each form
 
 
 def log(*a):
@@ -278,12 +338,13 @@ def rand_limbs(shape, gen, spec=SPEC):
 def general_edges(spec):
     """A general prime's edge values: 0, 1, 2, p − 1, p − 2, (p − 1)/2,
     R mod p and R² mod p (1 and R in Montgomery form), p − (R mod p), and
-    the largest values below 2^(16L − 1) and p: the sums of two products
-    of values near p − 1 reach the CIOS reduction's bound."""
+    the largest values below 2^(16L − 1), 2^(16L) and p: the sums of two
+    products of values near p − 1 reach the CIOS reduction's bound, and
+    at one limb the fold's longest loop."""
     p, R = spec.p, spec.r
     return sorted({0, 1, 2, p - 1, p - 2, (p - 1) // 2, R % p, R * R % p,
                    p - R % p, ((1 << (16 * spec.num_limbs - 1)) - 1) % p,
-                   p - 3})
+                   (R - 1) % p, p - 3})
 
 
 def edge_rows(A, B, shift=0, spec=SPEC):
@@ -316,6 +377,29 @@ def cuda_ms(fn, reps, settle_s=0.0):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def profiled_ms(fn, reps):
+    """Mean device milliseconds per run of the port's kernels that ``fn``
+    launches, read from a ``torch.profiler`` trace of ``reps`` runs after
+    one warm-up: the kernels' own durations, without the gaps in which the
+    card waits for the host's next launch (which CUDA events over
+    back-to-back launches include). None where the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and any(k in e.name for k in KERNEL_BASES)]
+    log(f"profiled {len(us)} kernel runs over {reps} calls")
+    return sum(us) / 1e3 / reps if us else None
 
 
 def reset_counts():
@@ -631,13 +715,16 @@ WORD_EDGE_KERNELS = ("aff1s_ip", "fused_bf1", "fused_bf2", "fused_cascade",
 
 
 def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
-                          label="", small_only=False):
+                          label="", small_only=False, profiled=False):
     """Phase 4, for the form that takes ``spec`` at its main shapes
     (``sched``'s window, ``batch`` lanes; none with ``small_only``).
     Returns {kind: stats}; max_abs_err is the largest over every
     comparison of that kernel; an M31 form is also timed as the int64
     PyTorch expression with ``%`` (``library_ms``). ``label`` names the
-    form in the log."""
+    form in the log. With ``profiled`` (main shapes whose launch is
+    shorter than the host's work between launches) ``ms`` is the kernel's
+    device time from a profiler trace (:func:`profiled_ms`), and
+    ``events_ms`` the CUDA-event time of back-to-back launches beside it."""
     W, A, bsx = sched.W, sched.A, sched.bs_max
     m31, nl = fd.is_m31(spec), spec.num_limbs
     res = {}
@@ -732,6 +819,14 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
             if kind not in res:  # timed at its first main shape
                 ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
                 clk = clock_now()
+                events_ms = ms
+                if profiled:
+                    ms = profiled_ms(lambda: kern(st), 20)
+                    check(ms is not None, f"{name}: the profiler recorded "
+                                          "no kernel")
+                    log(f"{name} at {what}: device time {ms:.4f} ms a "
+                        f"launch (torch.profiler), CUDA events over "
+                        f"back-to-back launches {events_ms:.4f} ms")
                 plain_ms = cuda_ms(lambda: plain(st), 3)
                 lib_ms = cuda_ms(lambda: lib(st), 3) if m31 else None
                 b = bound(kind, A, batch, levels[1] if levels else (), spec)
@@ -747,6 +842,8 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
                     + (f"; int64 expression {lib_ms:.3f} ms" if m31 else ""))
                 res[kind] = {"ms": ms, "plain_ms": plain_ms, **b,
                              "library_ms": lib_ms, "shape": what}
+                if profiled:
+                    res[kind]["events_ms"] = events_ms
             elif fused:
                 ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
                 log(f"{name} at {what}: kernel {ms:.3f} ms (then "
@@ -1277,6 +1374,194 @@ def field_path(tree, nt, gen, label, batch, phase, only=None):
     return totals
 
 
+# ---------------------------------------------- the NTT and persistence
+
+
+def ntt_counts_ok(what, counts, sched, meta, spec):
+    """An NTT call's launches: one 2-mul step a stage (aff2g on the scan
+    executor; muladd2 on the unrolled one, as its analysis predicts), the
+    two Montgomery conversions of the state (aff1s) for a prime without a
+    fold, and nothing else."""
+    steps = len(sched.xs[0])
+    two = "aff2g_ip" if meta is None else "muladd2"
+    want = {k: 0 for k in KERNELS}
+    want[two] = steps
+    want["aff1s_ip"] = 2 * fd.is_mont(spec)
+    if meta is not None:
+        check(analysis_counts(sched, meta)[0]["muladd2"] == steps,
+              f"{what}: the analysis fuses an NTT stage")
+    check(counts == want, f"{what} launches {counts}, want {want}")
+
+
+def ntt_path(label, p, g, n, batch, gen):
+    """Phase 11, one prime: ``NTTPlan(n, p, g)`` on the card, a batch of
+    ``batch`` polynomials on both executors. Gates: intt(ntt(x)) == x on
+    the whole batch, ntt against Horner evaluation in Python ints on
+    lanes 0 and B − 1 (at 8 root powers, or all n where n ≤ 2^10), the
+    executors equal on the whole batch, the launches against the
+    schedule's stages and the analysis. Returns (the form's launches over
+    the gated calls, {(executor, direction): polys/s}, best of 5 warm)."""
+    t0 = time.perf_counter()
+    plan = NTTPlan(n, p=p, generator=g, device=DEV)
+    spec = plan.spec
+    log(f"NTT {label}: p = {p:#x} ({spec.num_limbs} limbs, form "
+        f"{step.kernel_form(spec)}), n = {n}, B = {batch}; plan (pool of "
+        f"{plan.pool.shape[0]} rows, {len(plan._fwd.xs[0])} + "
+        f"{len(plan._inv.xs[0])} steps, W={plan._fwd.W} A={plan._fwd.A}): "
+        f"{time.perf_counter() - t0:.3f} s")
+    x = rand_limbs((batch, n), gen, spec)
+    w = pow(g, (p - 1) // n, p)
+    idx = (range(n) if n <= 1 << 10 else
+           sorted({0, 1, 2, 3, n // 4, n // 2, n - 2, n - 1}))
+    want = {}
+    for b in (0, batch - 1):
+        cs = [int(v) for v in fd.decode(spec, x[b])]
+        want[b] = [evaluate(cs, pow(w, i, p), p) for i in idx]
+    totals, outs, rates = collections.Counter(), {}, {}
+    for ex in ("scan", "unrolled"):
+        os.environ.pop("ECFFT_EXECUTOR", None)
+        if ex == "unrolled":
+            os.environ["ECFFT_EXECUTOR"] = "unrolled"
+        calls = {}
+        for inverse in (False, True):
+            sched, _, meta = plan.schedule(inverse)
+            torch.cuda.synchronize()
+            reset_counts()
+            out = plan.intt(outs[ex]) if inverse else plan.ntt(x)
+            torch.cuda.synchronize()
+            counts = read_counts(spec)
+            ntt_counts_ok(f"NTT {label} {'intt' if inverse else 'ntt'} "
+                          f"({ex})", counts, sched,
+                          meta if ex == "unrolled" else None, spec)
+            totals.update(counts)
+            calls[inverse] = {k: v for k, v in counts.items() if v}
+            if inverse:
+                check(torch.equal(out, x), f"NTT {label} ({ex}): intt(ntt(x))"
+                                           " != x")
+            else:
+                outs[ex] = out
+                check(in_range(out, spec), f"NTT {label} ({ex}) limbs out of "
+                                           "range")
+                for b, vals in want.items():
+                    got = fd.decode(spec, out[b])
+                    check([int(got[i]) for i in idx] == vals,
+                          f"NTT {label} ({ex}) differs from naive evaluation "
+                          f"on lane {b}")
+        for inverse, fn in ((False, plan.ntt), (True, plan.intt)):
+            arg = outs[ex] if inverse else x
+            times = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn(arg)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            rates[(ex, "intt" if inverse else "ntt")] = batch / min(times)
+            log(f"NTT {label} {'intt' if inverse else 'ntt'} ({ex}): "
+                f"launches {calls[inverse]}; warm reps (s) "
+                f"{[round(t, 5) for t in times]}: "
+                f"{batch / min(times):.3f} polys/s")
+        log(f"NTT {label} ({ex}): gates passed: intt(ntt(x)) == x on the "
+            f"whole batch; ntt == naive evaluation at {len(idx)} root "
+            f"powers on lanes 0 and {batch - 1}")
+    os.environ.pop("ECFFT_EXECUTOR", None)
+    check(torch.equal(outs["scan"], outs["unrolled"]),
+          f"NTT {label}: the unrolled executor differs from the scan one")
+    return totals, rates
+
+
+def persistence(tree, gen, batch=BATCH):
+    """Phase 8c on phase 3's tree: serialize in both modes and reserialize
+    after a deserialize (the bytes identical); the deserialized tree's
+    ENTER of the whole batch equals the tree's; the npz tables the same;
+    ``prepare(cache_dir=…)`` on a temporary directory by the deserialized
+    tree (it builds and writes) and by the npz tree (it must read the
+    pool and both schedules: the pool builder and the emitters are taken
+    away meanwhile), whose ENTER and EXIT equal the tree's; a tree built
+    on the CPU, prepared there and moved by ``place_on``, whose ENTER
+    equals the tree's. Each step printed with its seconds."""
+    import tempfile
+
+    from ecfft_tpu_torch import fftree as tfftree
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"{what}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    x = rand_limbs((batch, tree.n), gen)
+    want = tree.enter(x)
+    data = {}
+    for compress in (True, False):
+        mode = "compressed" if compress else "uncompressed"
+        data[compress] = timed(f"serialize ({mode})",
+                               lambda: serialize_fftree(tree, compress))
+        t2 = timed(f"deserialize ({mode}, {len(data[compress])} bytes)",
+                   lambda: deserialize_fftree(FIELD, data[compress],
+                                              compress, device=DEV))
+        again = timed(f"reserialize ({mode})",
+                      lambda: serialize_fftree(t2, compress))
+        check(again == data[compress], f"reserialized bytes differ ({mode})")
+    check(len(data[True]) < len(data[False]), "compressed is not smaller")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tree.npz")
+        timed("save_tables_npz", lambda: save_tables_npz(tree, path))
+        t4 = timed(f"load_tables_npz ({os.path.getsize(path)} bytes)",
+                   lambda: load_tables_npz(path, device=DEV))
+        timed("prepare(cache_dir) of the deserialized tree (builds the "
+              "pool and the ENTER/EXIT schedules, writes them)",
+              lambda: t2.prepare(cache_dir=d))
+        files = sorted(f for f in os.listdir(d) if f.startswith("."))
+        log(f"cache files: {[(f, os.path.getsize(os.path.join(d, f))) for f in files]}")
+        check(len(files) == 3, f"cache files {files}")
+        got = timed("the deserialized tree's ENTER",
+                    lambda: t2.enter(x))
+        check(torch.equal(got, want), "the deserialized tree's ENTER "
+                                      "differs")
+        pool_builder, emitters = tfftree.build_pool, tfftree._EMITTERS
+        tfftree.build_pool, tfftree._EMITTERS = None, {}
+        try:
+            timed("prepare(cache_dir) of the npz tree (reads the pool and "
+                  "the schedules)", lambda: t4.prepare(cache_dir=d))
+        finally:
+            tfftree.build_pool, tfftree._EMITTERS = pool_builder, emitters
+        check(torch.equal(t4._pool, tree._pool), "the cached pool differs")
+        got = timed("the cached npz tree's ENTER", lambda: t4.enter(x))
+        check(torch.equal(got, want), "the cached tree's ENTER differs")
+        got = timed("the cached npz tree's EXIT", lambda: t4.exit(want))
+        check(torch.equal(got, x), "the cached tree's EXIT differs")
+    del t2, t4, got
+    cpu = timed("a native-built tree on the CPU, prepared there",
+                lambda: build_fftree_native(FIELD, tree.n,
+                                            device="cpu").prepare())
+    timed("place_on(cuda)", lambda: cpu.place_on(DEV))
+    got = timed("the moved tree's ENTER", lambda: cpu.enter(x))
+    check(torch.equal(got, want), "the moved tree's ENTER differs")
+    log(f"persistence gates passed: bytes identical after a round trip "
+        f"(compressed {len(data[True])}, uncompressed {len(data[False])} "
+        f"bytes); ENTER of B={batch} equal on the deserialized, npz + cache "
+        f"and moved trees; EXIT equal on the cached one")
+
+
+def bench_suite(args) -> None:
+    """``python -m ecfft_tpu_torch.bench_suite`` with ``args`` in a
+    process of its own; it must exit 0. Prints its table."""
+    env = {k: v for k, v in os.environ.items() if k != "ECFFT_EXECUTOR"}
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "ecfft_tpu_torch.bench_suite", *args],
+        capture_output=True, text=True, timeout=400, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(f"bench_suite {' '.join(args)}: exit {res.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    log(res.stderr.strip())
+    log(res.stdout.strip())
+    check(res.returncode == 0, f"bench_suite {args} failed")
+
+
 def main() -> int:
     global SM_CLOCKS
     if not torch.cuda.is_available():
@@ -1429,6 +1714,22 @@ def main() -> int:
                     gen, gsched, grun, GSPEC[label], batch, label)
             torch.cuda.empty_cache()
 
+    with Phase("4d the one-limb fold form against its plain versions"):
+        # the 64513 NTT's window (A = 2^10 rows, B = 256) in a state of
+        # 2A + 256 rows (the pair levels' main window starts at row A);
+        # the cascade runs phase 3's ENTER levels there
+        shape = types.SimpleNamespace(W=2 * FOLD1_EDGE_N + 256,
+                                      A=FOLD1_EDGE_N, bs_max=64)
+        # a launch there (about a microsecond of bound) is shorter than
+        # the host's work between launches: the kernels' times are read
+        # from a profiler trace
+        fold1_stats = kernels_against_plain(
+            gen, shape, (0, cascade_run[1], cascade_run[2]), GSPEC["fold1"],
+            256, "fold1", profiled=True)
+        for label, p in (("fold1 97", 97), ("fold1 65521", 65521)):
+            kernels_against_plain(gen, shape, None, spec_for_prime(p), 256,
+                                  label, small_only=True)
+
     with Phase("5 native single-core ENTER baseline"):
         nt = NativeFFTree(FIELD, N)
         rng = random.Random(1)
@@ -1496,6 +1797,9 @@ def main() -> int:
         check(totals["mulss"] > 0, "mulss was not launched")
         print_table(rows, BATCH)
     scan_launches["mulss"] = un_launches["mulss"] = totals["mulss"]
+    with Phase("8c persistence on phase 3's tree: serialize, npz tables, "
+               "the cache directory and place_on"):
+        persistence(tree, gen)
     del tree, nt
     torch.cuda.empty_cache()
 
@@ -1512,6 +1816,46 @@ def main() -> int:
         del gtree, gnt
         torch.cuda.empty_cache()
 
+    nlaunch, nrates = {}, {}
+    for label, p, g, n, batch in NTT_PATHS:
+        with Phase(f"11 the classical NTT, {label}: n = {n}, B = {batch}, "
+                   "both executors"):
+            nlaunch[label], nrates[label] = ntt_path(label, p, g, n, batch,
+                                                     gen)
+            torch.cuda.empty_cache()
+    log("NTT (STARK prime) against ECFFT (secp256k1) at n = 2^16, B = 256, "
+        "polys/s, this run (benches/comparison.rs's comparison):")
+    log("transform | scan | unrolled")
+    for what, scan, unr in (
+            ("NTT forward", nrates["stark"][("scan", "ntt")],
+             nrates["stark"][("unrolled", "ntt")]),
+            ("NTT inverse", nrates["stark"][("scan", "intt")],
+             nrates["stark"][("unrolled", "intt")]),
+            ("ECFFT ENTER (phases 6b, 7b)", scan_tput, un_tput)):
+        log(f"{what} | {scan:.3f} | {unr:.3f}")
+
+    old_tw = unrolled.TW
+    unrolled.TW = FOLD1_TW
+    try:
+        with Phase(f"12 the one-limb fold prime's tree: n = {FOLD1_N}, "
+                   f"unrolled tile {FOLD1_TW} rows (set-up)"):
+            ftree = build_fftree_native(GSPEC["fold1"], FOLD1_N,
+                                        device=DEV).prepare()
+            os.environ["ECFFT_EXECUTOR"] = "unrolled"
+            ftree.prepare()
+            os.environ.pop("ECFFT_EXECUTOR")
+        fold1_launches = field_path(ftree, NativeFFTree(GSPEC["fold1"],
+                                                        FOLD1_N),
+                                    gen, "fold1", FOLD1_BATCH, 12)
+    finally:
+        unrolled.TW = old_tw
+        os.environ.pop("ECFFT_EXECUTOR", None)
+    del ftree
+
+    with Phase("13 the per-op bench suite, two runs"):
+        bench_suite(["--field", "m31", "--n", "2048", "--batch", "256"])
+        bench_suite(["--comparison", "--batch", "128"])
+
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         launches = (scan_launches if k in SCAN_KERNELS else un_launches)[k]
@@ -1525,10 +1869,18 @@ def main() -> int:
     for label, stats in gstats.items():
         for k, (src, replaces) in KERNELS.items():
             launches = glaunches[label][k] + (
-                glaunches["stark"][k] if label == "cios16" else 0)
+                glaunches["stark"][k] + nlaunch["stark"][k]
+                if label == "cios16" else 0)
             kernels.append({"name": f"{k}[{label}]", "route": "cuda",
                             "source": src, "replaces": replaces,
                             "launches": launches, **stats[k]})
+    for k, (src, replaces) in KERNELS.items():
+        launches = (fold1_launches[k] + nlaunch["fold1 64513"][k]
+                    + nlaunch["fold1 97"][k])
+        kernels.append({"name": f"{k}[fold1]", "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": launches, **fold1_stats[k]})
+    check(len(kernels) == 72, f"{len(kernels)} kernels in the line")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,15 @@ H100, slice by slice. This package imports torch, numpy and the standard
 library only, never jax or ``ecfft_tpu``.
 
 The port carries the FFTree's eight algorithms (ENTER, EXIT, EXTEND,
-MEXTEND, DEGREE, REDC, MOD, VANISH) over two fields, secp256k1 (16 limbs
-of 16 bits) and M31 (one 32-bit limb), on the schedule machine, on the
-scan executor or (``ECFFT_EXECUTOR=unrolled``) the unrolled one, with
-every step kernel written in CUDA for Hopper. Trees live on the card
-unless the caller passes ``device="cpu"``::
+MEXTEND, DEGREE, REDC, MOD, VANISH) over secp256k1 (16 limbs of 16 bits),
+M31 (one 32-bit limb) and any other odd prime below 2^256 the JAX package
+runs (``fields.registry``), on the schedule machine, on the scan executor
+or (``ECFFT_EXECUTOR=unrolled``) the unrolled one, with every step kernel
+written in CUDA for Hopper; the classical NTT it is compared with
+(``ntt.NTTPlan``); tree persistence (``serialize``, ``serialize_native``,
+``FFTree.prepare(cache_dir=…)``, ``FFTree.place_on``); and the per-op
+bench suite (``python -m ecfft_tpu_torch.bench_suite``). Trees and plans
+live on the card unless the caller passes ``device="cpu"``::
 
     import ecfft_tpu_torch as ec
 
@@ -20,6 +24,7 @@ unless the caller passes ``device="cpu"``::
 from ecfft_tpu_torch.errors import (
     CurveError,
     EcfftError,
+    SerializationError,
     SizeError,
     TreeConstructionError,
     UnknownFieldError,
@@ -31,5 +36,5 @@ from ecfft_tpu_torch.fields.registry import FIELDS
 __all__ = [
     "FFTree", "S0", "S1", "build_fftree", "build_fftree_native", "FIELDS",
     "EcfftError", "UnknownFieldError", "SizeError", "CurveError",
-    "TreeConstructionError",
+    "TreeConstructionError", "SerializationError",
 ]

@@ -1,10 +1,10 @@
 """Carry FFTree tables into the port.
 
-The JAX package's ``FFTree.tables`` and :func:`ecfft_tpu_torch.native.
-build_tables_native` share one layout: ``{m: {name: (rows, L) uint32
-limbs, "mats": [4-tuples of (half, 2, 2, L)]}}``. The port keeps the same
-layout with int32 tensors (a 16-bit limb fits), so both packages compute
-on identical state.
+The JAX package's ``FFTree.tables`` and the tables of
+:func:`ecfft_tpu_torch.native.build_tree_native` share one layout:
+``{m: {name: (rows, L) uint32 limbs, "mats": [4-tuples of (half, 2, 2,
+L)]}}``. The port keeps the same layout with int32 tensors (a 16-bit limb
+fits), so both packages compute on identical state.
 """
 
 from __future__ import annotations

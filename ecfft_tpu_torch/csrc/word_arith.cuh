@@ -1,6 +1,7 @@
 // Field arithmetic on 32-bit words, for every kernel of step_kernels.cu and
-// fused_kernels.cu: any prime of NL = 2 .. 16 limbs of 16 bits (M31 has its
-// own header, m31_arith.cuh).
+// fused_kernels.cu: any prime of NL = 2 .. 16 limbs of 16 bits, and a prime
+// of one 16-bit limb with a fold (NL = 1, the "fold1" form: 97, 64513, ...;
+// M31 has its own header, m31_arith.cuh).
 //
 // The state keeps an element as NL limbs of 16 bits, one per int32 (the
 // layout every kernel shares). These functions pack it into NW = (NL + 1)
@@ -183,9 +184,12 @@ __host__ __device__ __forceinline__ void sub_shifted_p(const Field& fd,
 //    the low half after the first lies within 2^68 of 2^256. For 2^255 - 19
 //    (F = 38) the same holds with 2^264 and 2^256 + 2^14, for 2^256 - 1053
 //    with 2^268 and 2^256 + 2^23, for M61 (NL = 4, F = 8) with 2^68 and
-//    2^64 + 2^7. A round sums lo and the products of H's words by F's
-//    nonzero words in 64-bit columns (each below 2^32 + 2^59, as F's words
-//    sum below 2^27: its 16-bit digits sum below 2^11), then carries. For
+//    2^64 + 2^7. At one limb (NL = 1, F = 2^16 mod p < 2^11) the loop
+//    runs up to five rounds: for p = 64513 (F = 1023) V < 2^33 drops below
+//    2^27, 2^21, 2^17, then 2^16 + 2^11 and then 2^16. A round sums lo and
+//    the products of H's words by F's nonzero words in 64-bit columns
+//    (each below 2^32 + 2^59, as F's words sum below 2^27: its 16-bit
+//    digits sum below 2^11), then carries. For
 //    an odd NL, R splits a word: H's words are read 16 bits apart. lo +
 //    H*F < R + H*R <= V's own bound, so no column past v's words is
 //    needed.
@@ -371,5 +375,6 @@ __host__ __device__ __forceinline__ void mul(const Field& fd,
 constexpr int NL = ECFFT_NL;         // 16-bit limbs per element (the state's)
 constexpr int NW = wa::words(NL);    // 32-bit words per element
 constexpr bool MONT = ECFFT_MONT;    // the CIOS form (else the fold form)
-static_assert(NL >= 2 && NL <= 16, "2 to 16 limbs");
+static_assert(NL >= 1 && NL <= 16, "1 to 16 limbs");
+static_assert(NL >= 2 || !MONT, "one limb takes the fold form only");
 #endif

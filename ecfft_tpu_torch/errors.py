@@ -34,3 +34,11 @@ class TreeConstructionError(EcfftError, ValueError):
     map that is not 2-to-1 on its layer — the reference's debug_assert,
     fftree.rs:65)."""
 
+
+class SerializationError(EcfftError, ValueError):
+    """Malformed FFTree bytes: truncated input, an implausible length
+    prefix, a non-0/1 subtree flag, a non-power-of-two heap, or a felt
+    outside [0, p). The reference declares but never implements this
+    validation (``Valid::check`` is a no-op, fftree.rs:593-598); here
+    corrupt input always surfaces as this type instead of an arbitrary
+    numpy/struct error."""

@@ -4,11 +4,12 @@ The port's counterpart of ``ecfft_tpu/fftree.py``: ENTER (coefficients →
 evaluations), EXIT (evaluations → coefficients), EXTEND, MEXTEND, DEGREE,
 REDC, MOD and VANISH on the schedule machine, over any odd prime below
 2^256 the JAX package runs, on the card and on the CPU alike: M31, primes
-of 2 to 16 limbs of 16 bits with a pseudo-Mersenne fold (secp256k1,
-2^255 − 19, M61 = 2^61 − 1, 2^256 − 1053), and every other such prime in
-Montgomery form with CIOS reduction (the STARK prime, a fresh prime from
+of 1 to 16 limbs of 16 bits with a pseudo-Mersenne fold (secp256k1,
+2^255 − 19, M61 = 2^61 − 1, 2^256 − 1053, 64513), and every other such
+prime of 2 limbs or more in Montgomery form with CIOS reduction (the
+STARK prime, a fresh prime from
 ``fields.registry.field_from_curve_search``); see
-``ops.step.kernel_form``. Only a prime below 2^16 other than M31 is
+``ops.step.kernel_form``. Only a prime below 2^16 without a fold is
 refused. The methods carry the JAX package's names and arguments; its
 ``*_unscheduled`` cross-validation forms are not ported.
 
@@ -26,9 +27,20 @@ the way in and out (``ops/schedule.py::run_chunks``).
 (``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
 the schedule, made in :meth:`FFTree.prepare` when that executor is
 selected.
+
+Persistence: a tree carries its domain's layers and rational maps
+(``f_layers``, ``maps``) for ``serialize.serialize_fftree``;
+:meth:`FFTree.prepare` with a ``cache_dir`` keeps the pool and the
+ENTER/EXIT schedules in the JAX package's files (the same names and keys,
+the canonical pool as uint32), so a cache either package wrote loads into
+the other; :meth:`FFTree.place_on` moves a tree between devices.
 """
 
 from __future__ import annotations
+
+import hashlib
+import json
+import os
 
 import numpy as np
 import torch
@@ -37,12 +49,12 @@ from ecfft_tpu_torch.convert import tables_from_numpy
 from ecfft_tpu_torch.errors import SizeError
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec, get_spec
-from ecfft_tpu_torch.native import build_tables_native
+from ecfft_tpu_torch.native import build_tree_native
 from ecfft_tpu_torch.ops import emit, step
-from ecfft_tpu_torch.ops.schedule import (build_pool, run_schedule,
-                                          unrolled_selected)
+from ecfft_tpu_torch.ops.schedule import (build_pool, pool_to_mont,
+                                          run_schedule, schedule_entry,
+                                          with_analysis)
 from ecfft_tpu_torch.ops.emit import S0, S1
-from ecfft_tpu_torch.ops.unrolled import _SchedMeta
 
 # algorithm → emitter(pool offsets, prime, size, moiety)
 _EMITTERS = {
@@ -63,18 +75,27 @@ _EMITTERS = {
     "vanish": lambda off, p, m, mo: emit.vanish_schedule(off, m),
 }
 
+# the JAX package's cache format (``ecfft_tpu/fftree.py``'s _POOL_FORMAT):
+# bumped there on any pool or schedule layout change, so a stale file
+# never loads
+_POOL_FORMAT = 6
+
 
 class FFTree:
     """ECFFT evaluation-domain tables for one field and size ``n``, serving
     every power-of-two size ≤ n, with the eight batch-first algorithms."""
 
     def __init__(self, spec: str | FieldSpec, n: int, tables: dict,
-                 device="cuda"):
+                 device="cuda", f_layers: list | None = None,
+                 maps: list | None = None):
         self.spec = get_spec(spec)
         self.device = torch.device(device)
         _check_field(self.spec, self.device)
         self.n = n
         self.tables = tables
+        # host-int domain layers + rational maps, kept for serialization
+        self.f_layers = f_layers
+        self.maps = maps
         self._pool = None
         self._pool_off = None
         self._scheds: dict = {}
@@ -104,29 +125,95 @@ class FFTree:
         self._ensure_pool()
         return self._pool_off
 
-    def _ensure_pool(self) -> None:
+    def _ensure_pool(self, pool=None, offsets=None) -> None:
         """Build the coefficient pool (on the CPU, then moved to the
-        device) once; with Montgomery residents it is converted there, one
-        row product by R² mod p per row (a kernel launch on the card), as
-        the JAX package converts it once per call chain
-        (``_pool_to_mont``)."""
+        device) once, or take a canonical ``pool`` and its ``offsets``
+        (read from a cache file); with Montgomery residents it is
+        converted there, one row product by R² mod p per row (a kernel
+        launch on the card), as the JAX package converts it once per call
+        chain (``_pool_to_mont``)."""
         if self._pool is None:
-            pool, self._pool_off = build_pool(self.spec, self.tables)
-            pool = pool.to(self.device)
-            if fd.is_mont(self.spec):
-                r2 = fd.encode(self.spec, self.spec.r2_mod_p, self.device)
-                pool = step.mul_rows(self.spec, r2.expand_as(pool), pool)
-            self._pool = pool
+            if pool is None:
+                pool, offsets = build_pool(self.spec, self.tables)
+            self._pool_off = offsets
+            self._pool = pool_to_mont(self.spec, pool.to(self.device))
 
-    def prepare(self, sizes: tuple | None = None) -> "FFTree":
+    def _cache_digest(self) -> str:
+        """Short content digest of the tree identity for cache filenames:
+        the prime and the full leaf domain (which determines every table),
+        hashed as the JAX package hashes them, so both packages name a
+        tree's files alike."""
+        h = hashlib.sha256()
+        h.update(self.spec.p.to_bytes((self.spec.p.bit_length() + 7) // 8,
+                                      "little"))
+        h.update(self.tables[self.n]["leaves"].numpy().astype(np.uint32)
+                 .tobytes())
+        return h.hexdigest()[:12]
+
+    def prepare(self, sizes: tuple | None = None,
+                cache_dir: str | None = None) -> "FFTree":
         """Build the coefficient pool and the ENTER/EXIT schedules for
         ``sizes`` (default, or empty: n; the other algorithms' schedules
         are made at first use), with the unrolled executor's analysis
-        where it is selected, ahead of the first transform."""
+        where it is selected, ahead of the first transform.
+
+        ``cache_dir``: keep the pool in
+        ``<dir>/.pool_<field>_<n>_<fmt>_<digest>.npz`` (the canonical
+        pool as uint32 and its offsets as JSON) and each schedule in
+        ``<dir>/.sched_<field>_<alg>_<m>_<fmt>_<digest>.npz``, the JAX
+        package's names and keys: a file that exists is read instead of
+        built (the pool only while the tree has none yet), one that does
+        not is written."""
+        tag = f"{_POOL_FORMAT}_{self._cache_digest()}"
+        if cache_dir is not None and self._pool is None:
+            path = os.path.join(
+                cache_dir, f".pool_{self.spec.name}_{self.n}_{tag}.npz")
+            if os.path.exists(path):
+                with np.load(path, allow_pickle=False) as z:
+                    pool = torch.from_numpy(z["pool"].astype(np.int32))
+                    offsets = json.loads(str(z["offsets"]))
+            else:
+                pool, offsets = build_pool(self.spec, self.tables)
+                np.savez(path, pool=pool.numpy().astype(np.uint32),
+                         offsets=json.dumps(offsets))
+            self._ensure_pool(pool, offsets)
         self._ensure_pool()
         for m in sizes or (self.n,):
             for alg in ("enter", "exit"):
+                key = (alg, m)
+                spath = None if cache_dir is None else os.path.join(
+                    cache_dir, f".sched_{self.spec.name}_{alg}_{m}_{tag}.npz")
+                if key not in self._scheds and spath is not None:
+                    if os.path.exists(spath):
+                        with np.load(spath, allow_pickle=False) as z:
+                            s = emit.Schedule(
+                                int(z["W"]), int(z["A"]), int(z["bs_max"]),
+                                tuple(z[f"xs{i}"] for i in range(6)),
+                                z["out_perm"] if "out_perm" in z.files
+                                else None)
+                        self._scheds[key] = schedule_entry(s, self.device)
+                    else:
+                        s = self._schedule(alg, m)[0]
+                        arrs = {f"xs{i}": a for i, a in enumerate(s.xs)}
+                        if s.out_perm is not None:
+                            arrs["out_perm"] = s.out_perm
+                        np.savez(spath, W=s.W, A=s.A, bs_max=s.bs_max,
+                                 **arrs)
                 self._schedule(alg, m)
+        return self
+
+    def place_on(self, device) -> "FFTree":
+        """Move the tree to ``device``: the pool and the schedules'
+        residual banks (the tables, which feed only the pool, and the
+        unrolled analysis, host numpy, stay on the CPU); later batches
+        go on that device."""
+        device = torch.device(device)
+        _check_field(self.spec, device)
+        self.device = device
+        if self._pool is not None:
+            self._pool = self._pool.to(device)
+        for entry in self._scheds.values():
+            entry[1] = entry[1].to(device)
         return self
 
     def _schedule(self, alg: str, m: int, moiety: int | None = None):
@@ -138,15 +225,11 @@ class FFTree:
         if key not in self._scheds:
             self._ensure_pool()
             s = _EMITTERS[alg](self._pool_off, self.spec.p, m, moiety)
-            bank = torch.from_numpy(s.xs[5]).to(self.device, torch.int64)
-            self._scheds[key] = [s, bank, None]
-        entry = self._scheds[key]
-        if entry[2] is None and unrolled_selected():
-            entry[2] = _SchedMeta(entry[0])
-        return entry
+            self._scheds[key] = schedule_entry(s, self.device)
+        return with_analysis(self._scheds[key])
 
     def _check_limbs(self, t, what: str, lead: str = "..., ") -> None:
-        if (t.dtype != torch.int32 or t.device != self.device
+        if (t.dtype != torch.int32 or not fd.on_device(t, self.device)
                 or t.shape[-1] != self.spec.num_limbs):
             raise ValueError(
                 f"expected {what} as ({lead}{t.shape[-2]}, "
@@ -261,8 +344,8 @@ class FFTree:
 
 
 def _check_field(spec: FieldSpec, device: torch.device) -> None:
-    """Refuse a field the port cannot compute in (a prime below 2^16 other
-    than M31), naming the cause; on the card also one no kernel form
+    """Refuse a field the port cannot compute in (a prime below 2^16
+    without a fold), naming the cause; on the card also one no kernel form
     takes (``ops.step.kernel_form``)."""
     fd.check_fold(spec)
     if device.type == "cuda":
@@ -275,10 +358,11 @@ def build_fftree_native(field: str | FieldSpec, n: int,
     when n exceeds the field's curve two-adicity."""
     spec = get_spec(field)
     _check_field(spec, torch.device(device))
-    tables = build_tables_native(spec, n)
-    if tables is None:
+    built = build_tree_native(spec, n)
+    if built is None:
         return None
-    return FFTree(spec, n, tables_from_numpy(tables), device)
+    tables, f_layers, maps = built
+    return FFTree(spec, n, tables_from_numpy(tables), device, f_layers, maps)
 
 
 # the JAX package's ``build_fftree``: the port has no device bootstrap, so

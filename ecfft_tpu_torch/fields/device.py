@@ -19,7 +19,9 @@ producing the same column values; only the carry normalization differs
 A prime without a pseudo-Mersenne fold keeps its residents in Montgomery
 form (value·R, R = 2^(16L)), as the JAX package does: its products reduce
 by ``_mont_reduce_cols`` (CIOS), and :func:`mul` gives the canonical
-product of canonical values.
+product of canonical values. A prime of one 16-bit limb with a fold
+(p = 97, 64513, 65521, ...) keeps canonical residents: its product columns
+hold a value below 2^35, which one int64 remainder reduces exactly.
 """
 
 from __future__ import annotations
@@ -62,6 +64,16 @@ def decode(spec: FieldSpec, limbs) -> np.ndarray:
     return out.reshape(shape)
 
 
+def on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lies on ``device``, where a CUDA device without an
+    index (``"cuda"``, the trees' default) means the current card, as
+    ``torch`` places a tensor made for it (``t.device`` is then
+    ``cuda:0``, not ``cuda``)."""
+    if device.type == "cuda" and device.index is None:
+        return t.is_cuda and t.device.index == torch.cuda.current_device()
+    return t.device == device
+
+
 def ones(spec: FieldSpec, shape=(), device=None) -> torch.Tensor:
     return encode(spec, 1, device).expand(*shape, spec.num_limbs)
 
@@ -96,18 +108,6 @@ def _m31_mul(a, b):
     reduced: the same residue, so the same bits, as the JAX package's
     16-bit-split product."""
     return _m31_canon(a.long() * b.long())
-
-
-def _m31_pow(a, e: int):
-    """a^e elementwise by square-and-multiply on int64 tensors."""
-    a = a.long()
-    r = torch.ones_like(a)
-    while e:
-        if e & 1:
-            r = _m31_mul(r, a)
-        a = _m31_mul(a, a)
-        e >>= 1
-    return r
 
 
 # ------------------------------------------------ int64 column pipeline
@@ -176,8 +176,14 @@ def _cond_sub(spec: FieldSpec, x, js):
 def _reduce_cols(spec: FieldSpec, c):
     """Product columns (..., 2L, B) → canonical value (..., L, B): fold,
     normalize (twice), then subtract p·2^j where it fits, j from the slack
-    bound down to 0."""
+    bound down to 0. At one limb the columns' value (below 2^35, exact in
+    int64) is reduced by a remainder: two folds need not reach 2^16 there
+    (F = 2^16 mod p may be as large as 2^11, e.g. 1023 for p = 64513)."""
     L = spec.num_limbs
+    if L == 1:
+        v = sum(c[..., k:k + 1, :].long() << (16 * k)
+                for k in range(c.shape[-2]))
+        return torch.remainder(v, spec.p)
     c = _normalize_cols(_fold_cols(spec, c))
     c = _normalize_cols(_fold_cols(spec, c))
     slack = 16 * L - spec.p.bit_length()
@@ -233,15 +239,20 @@ def _mont_mul_cols(spec: FieldSpec, a, x):
 
 def check_fold(spec: FieldSpec) -> None:
     """Raise NotImplementedError for a field the port cannot compute in: a
-    prime below 2^16 other than M31 (one 16-bit limb, which the JAX package
-    reduces with neither a Pallas kernel nor Montgomery residents). Every
-    other odd prime runs: M31, a prime with a pseudo-Mersenne fold
-    (canonical residents), any other (Montgomery residents)."""
-    if spec.num_limbs == 1 and not is_m31(spec):
+    prime below 2^16 without a pseudo-Mersenne fold (one 16-bit limb whose
+    F = 2^16 mod p has a digit of 2^11 or more, e.g. 40961 or 12289). The
+    JAX package keeps canonical residents for it yet reduces its products
+    by a Montgomery reduction, and so computes wrong values (ROADMAP.md,
+    "What stays out"). Every other odd prime runs: M31, a prime with a
+    fold (canonical residents; one 16-bit limb included), any other of 2
+    limbs or more (Montgomery residents)."""
+    if spec.num_limbs == 1 and not is_m31(spec) and spec.fold_terms is None:
         raise NotImplementedError(
-            f"{spec.name}: a prime of one 16-bit limb is not taken (M31 is "
-            "the one one-limb field: its limb is a 32-bit word); the JAX "
-            "package takes it to no Pallas kernel (ROADMAP.md)")
+            f"{spec.name}: a prime of one 16-bit limb without a "
+            f"pseudo-Mersenne fold is not taken (2^16 mod p = "
+            f"{spec.r_mod_p} is past the fold's bound 2^11; the JAX package "
+            "reduces such a prime's canonical residents with a Montgomery "
+            "reduction and computes wrong values)")
 
 
 # --------------------------------------------------------- field ops
@@ -264,9 +275,9 @@ def mul(spec: FieldSpec, a, b) -> torch.Tensor:
     return _reduce_cols(spec, _conv_cols(spec, a, b))[..., 0].int()
 
 
-
 def neg(spec: FieldSpec, a) -> torch.Tensor:
     """−a mod p for (..., L) int32 tensors (zero stays zero)."""
+    check_fold(spec)
     if is_m31(spec):
         return _m31_sub(torch.zeros_like(a), a).int()
     p = torch.tensor(spec.to_limbs(spec.p), dtype=torch.int64,
@@ -283,12 +294,27 @@ def neg(spec: FieldSpec, a) -> torch.Tensor:
     return torch.where(zero, torch.zeros_like(out), out).int()
 
 
+def _small_pow(a, e: int, p: int):
+    """a^e mod p elementwise for a one-limb prime (M31 or p < 2^16) on
+    int64 tensors: every product is below 2^62, every remainder exact."""
+    a = a.long()
+    r = torch.ones_like(a)
+    while e:
+        if e & 1:
+            r = r * a % p
+        a = a * a % p
+        e >>= 1
+    return r
+
+
 def inv(spec: FieldSpec, a) -> torch.Tensor:
-    """Elementwise inverse of M31 (..., 1) int32 values by Fermat, a^(p−2)
-    (zero maps to zero, as in the JAX package's ``inv``). The 16-bit-limb
-    fields invert through the native engine (``native.batch_inv_limbs``)."""
-    if not is_m31(spec):
+    """Elementwise inverse of one-limb (..., 1) int32 values by Fermat,
+    a^(p−2): M31, or a prime below 2^16 (zero maps to zero, as in the JAX
+    package's ``inv``). The fields of 2 limbs or more invert through the
+    native engine (``native.batch_inv_limbs``)."""
+    check_fold(spec)
+    if spec.num_limbs != 1:
         raise NotImplementedError(
-            f"{spec.name}: inv takes M31; invert 16-bit limbs with "
-            "native.batch_inv_limbs")
-    return _m31_pow(a, M31_P - 2).int()
+            f"{spec.name}: inv takes one-limb fields; invert 16-bit limbs "
+            "with native.batch_inv_limbs")
+    return _small_pow(a, spec.p - 2, spec.p).int()

@@ -1,8 +1,9 @@
 """Host-side exact prime-field arithmetic over python ints.
 
 A jax-free copy of the functions of ``ecfft_tpu/fields/host.py`` that the
-curve layer needs: inverse, Legendre symbol and square root mod p. Each
-has the same source as its original (tested).
+curve layer needs: inverse, Legendre symbol and square root mod p, and
+the batch inversion that deserialization regenerates the inverse tables
+with. Each has the same source as its original (tested).
 """
 
 from __future__ import annotations
@@ -66,3 +67,26 @@ def sqrt_mod(a: int, p: int) -> int | None:
         t = t * c % p
         r = r * b % p
     return r
+
+
+def batch_inv_mod(vals: list[int], p: int) -> list[int]:
+    """Montgomery's batch-inversion trick (1 inversion + 3n muls).
+
+    Host analogue of ``ark_ff::batch_inversion`` used by the reference at
+    reference/src/fftree.rs:330-333,409-410,236. Zero entries are
+    left as zero (matching arkworks semantics).
+    """
+    n = len(vals)
+    prefix = [1] * (n + 1)
+    for i, v in enumerate(vals):
+        prefix[i + 1] = prefix[i] * (v if v != 0 else 1) % p
+    acc = inv_mod(prefix[n], p)
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        v = vals[i]
+        if v == 0:
+            out[i] = 0
+        else:
+            out[i] = acc * prefix[i] % p
+            acc = acc * v % p
+    return out

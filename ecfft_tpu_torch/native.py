@@ -4,7 +4,7 @@ The port's counterpart of ``ecfft_tpu/native.py``, bound to the same
 source, which ``ops._build.native_library`` compiles into the port's own
 build directory. The engine is the port's independent single-core oracle
 (4×64 Montgomery arithmetic), the baseline that ``chip_smoke.py`` measures,
-the FFTree builder (:func:`build_tables_native`) and FIND_CURVE's search
+the FFTree builder (:func:`build_tree_native`) and FIND_CURVE's search
 for a fresh prime's curve (:func:`find_curve_native`,
 :func:`find_curve_parallel`, with the source of their originals).
 
@@ -62,6 +62,9 @@ def lib() -> ctypes.CDLL:
         so.ecn_mats.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
                                 ctypes.c_uint64, ctypes.c_int,
                                 ctypes.c_char_p]
+        so.ecn_layer.restype = ctypes.c_uint64
+        so.ecn_layer.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                 ctypes.c_char_p]
         so.ecn_batch_inv.restype = None
         so.ecn_batch_inv.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                      ctypes.c_uint64, ctypes.c_char_p]
@@ -174,6 +177,12 @@ class NativeFFTree:
         lib().ecn_mats(self._h, size, depth, which, out)
         return _unpack(out.raw)
 
+    def layer(self, li: int) -> list[int]:
+        cnt = lib().ecn_layer(self._h, li, None)
+        out = ctypes.create_string_buffer(32 * cnt)
+        lib().ecn_layer(self._h, li, out)
+        return _unpack(out.raw)
+
 
 def batch_inv_limbs(spec: FieldSpec, arr: np.ndarray) -> np.ndarray:
     """Batched modular inverse of an (N, L) 16-bit-limb array (Montgomery's
@@ -202,11 +211,13 @@ def _ints_to_limbs(spec: FieldSpec, vals: list[int]) -> np.ndarray:
     return out[:, :spec.num_limbs]
 
 
-def build_tables_native(field: str | FieldSpec, n: int) -> dict | None:
-    """The FFTree tables of a size-``n`` tree, built by the native engine,
-    as numpy uint32 limb arrays in the JAX package's layout:
-    ``{m: {name: (rows, L), "mats": [(dec_S0, dec_S1, rec_S0, rec_S1)
-    per depth, each (m/4 >> d, 2, 2, L)]}}`` for m = 2, 4, …, n. Mirrors
+def build_tree_native(field: str | FieldSpec, n: int) -> tuple | None:
+    """(tables, f_layers, maps) of a size-``n`` tree, built by the native
+    engine: the tables as numpy uint32 limb arrays in the JAX package's
+    layout, ``{m: {name: (rows, L), "mats": [(dec_S0, dec_S1, rec_S0,
+    rec_S1) per depth, each (m/4 >> d, 2, 2, L)]}}`` for m = 2, 4, …, n;
+    the domain's layers as python ints, leaves first (``NativeFFTree.
+    layer``), and the rational maps, which serialization writes. Mirrors
     ``ecfft_tpu.native.build_fftree_native``; None when n exceeds the
     curve's two-adicity."""
     spec = FIELDS[field] if isinstance(field, str) else field
@@ -226,7 +237,7 @@ def build_tables_native(field: str | FieldSpec, n: int) -> dict | None:
         ]
         tables[m] = t
         m *= 2
-    return tables
+    return tables, [nt.layer(li) for li in range(n.bit_length())], dom[1]
 
 
 def find_curve_parallel(p: int, k: int, threads: int = 10,

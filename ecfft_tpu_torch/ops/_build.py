@@ -5,8 +5,8 @@ Two kinds of library, each with a plain C interface opened through ctypes:
 - the kernels, one library per form (``ops/step.py::kernel_form``), for
   Hopper (``sm_90a``) with ``nvcc``:
 
-  - a word form ("fold16", "cios3", ...: the fold or the CIOS reduction at
-    a limb count) from ``csrc/step_kernels.cu`` and
+  - a word form ("fold16", "cios3", "fold1", ...: the fold or the CIOS
+    reduction at a limb count) from ``csrc/step_kernels.cu`` and
     ``csrc/fused_kernels.cu`` (``csrc/word_arith.cuh``,
     ``csrc/levels.cuh``, ``csrc/warp_cascade.cuh``), compiled with
     ``-DECFFT_NL=<limbs> -DECFFT_MONT=<0|1>``: ``libecfft_<form>.so``;
@@ -87,7 +87,7 @@ def form_sources(form: str) -> tuple[list, list]:
     if form == "m31":
         return M31_SOURCES, []
     m = _WORD_FORM.match(form)
-    if m is None or not 2 <= int(m.group(2)) <= 16:
+    if m is None or not 1 <= int(m.group(2)) <= 16 or form == "cios1":
         raise ValueError(f"no kernel form {form!r}")
     return KERNEL_SOURCES, [f"-DECFFT_NL={int(m.group(2))}",
                             f"-DECFFT_MONT={int(m.group(1) == 'cios')}"]

@@ -14,7 +14,8 @@ The port's counterpart of the device half of ``ecfft_tpu/ops/schedule.py``
   pack to the unpack, as in the JAX package (``_pack_state``,
   ``_unpack_state``): the packed rows are converted once on the way in
   (the constant 1 becomes R mod p) and the output once on the way out,
-  each by the self-read step (a kernel launch on the card).
+  each by the self-read step (a kernel launch on the card). The constant
+  1 sits where the JAX package's ``to_state`` puts it (:func:`one_row`).
 
 The executor is a Python loop over the steps. Each step's opcode, window
 start, formula scalars and D-engine parameters come from the schedule's
@@ -84,7 +85,8 @@ def build_pool(spec: FieldSpec, tables: dict) -> tuple[torch.Tensor, dict]:
     Sets ``offsets["unscaled"] = True`` when a Lemma-3.2 diagonal entry
     is zero (the emitters then use exact 2-mul butterflies). The
     diagonals' inverses come from the native engine (16-bit limbs) or, for
-    M31, from Fermat's a^(p−2) in int64 (``fields.device.inv``); inverses
+    a one-limb field (M31, a prime below 2^16), from Fermat's a^(p−2) in
+    int64 (``fields.device.inv``); inverses
     are unique, so either equals the JAX package's product-scan inverse."""
     sizes = tuple(sorted(tables))
     meta = _plane_meta(sizes)
@@ -115,7 +117,7 @@ def build_pool(spec: FieldSpec, tables: dict) -> tuple[torch.Tensor, dict]:
         if bool((diags == 0).all(dim=-1).any()):
             off["unscaled"] = True
             msi = torch.zeros_like(diags)
-        elif fd.is_m31(spec):  # the native inversion takes 16-bit limbs
+        elif spec.num_limbs == 1:  # M31, a prime below 2^16: Fermat
             msi = fd.inv(spec, diags)
         else:
             msi = torch.from_numpy(batch_inv_limbs(
@@ -155,8 +157,21 @@ _OPS = (OP_AFFINE, OP_AFFINE_C, OP_AFF1, OP_AFF1_C, OP_AFF1S, OP_AFF1S_C,
 _FROM_SCRATCH = (OP_AFFINE_C, OP_AFF1_C, OP_AFF1S_C)
 
 
+def one_row(W: int, m: int, one_pos: int):
+    """The state row that holds the constant 1, as the JAX package's
+    ``to_state`` places it: pad row ``one_pos - m`` behind the m packed
+    rows, which Python's indexing takes from the end where one_pos < m
+    (the NTT's one_pos = m - 1 is row W - 1); None when the state has no
+    pad rows or the index lies outside them (a scatter drops it there)."""
+    pad, i = W - m, one_pos - m
+    if not -pad <= i < pad:
+        return None
+    return m + i % pad
+
+
 def to_state(batch, W: int, one_pos: int):
-    """(B, m, L) batch → (W, L, B) state with a constant 1 at one_pos.
+    """(B, m, L) batch → (W, L, B) state with a constant 1 at
+    :func:`one_row`.
 
     ``batch`` may be a tuple of parts laid one after the other along the
     position axis (the general-modulus REDC/MOD pack [evals ‖ a ‖ c]): the
@@ -169,8 +184,9 @@ def to_state(batch, W: int, one_pos: int):
     for part in extras:
         x[m:m + part.shape[0]] = part.unsqueeze(-1)
         m += part.shape[0]
-    if W > m:
-        x[one_pos, 0, :] = 1
+    row = one_row(W, m, one_pos)
+    if row is not None:
+        x[row, 0, :] = 1
     return x
 
 
@@ -392,6 +408,33 @@ def unrolled_selected() -> bool:
     return os.environ.get("ECFFT_EXECUTOR") == "unrolled"
 
 
+def pool_to_mont(spec: FieldSpec, pool):
+    """A canonical pool in its residents' form: with Montgomery residents
+    one row product by R² mod p per row (a kernel launch on the card), as
+    the JAX package converts it (``_pool_to_mont``); else ``pool``."""
+    if not fd.is_mont(spec):
+        return pool
+    r2 = fd.encode(spec, spec.r2_mod_p, pool.device)
+    return step.mul_rows(spec, r2.expand_as(pool), pool)
+
+
+def schedule_entry(sched: Schedule, device) -> list:
+    """[schedule, residual bank as int64 on ``device``, None]: a schedule
+    as trees and plans keep it; :func:`with_analysis` fills the last slot."""
+    return [sched, torch.from_numpy(sched.xs[5]).to(device, torch.int64),
+            None]
+
+
+def with_analysis(entry: list) -> list:
+    """``entry`` with the unrolled executor's fusion analysis of its
+    schedule, made at first use where that executor is selected."""
+    if entry[2] is None and unrolled_selected():
+        from ecfft_tpu_torch.ops.unrolled import _SchedMeta
+
+        entry[2] = _SchedMeta(entry[0])
+    return entry
+
+
 def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
                  one_pos: int, m_out: int, meta=None):
     """Execute a schedule: (B, m, L) int32 ``batch`` → (B, m_out, L), the
@@ -434,7 +477,8 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
     Montgomery form after the pack, the constant 1 at ``one_pos`` (a row
     past them) becomes R mod p, and the output rows leave it before the
     unpack: the bits of the JAX package's state, which converts the whole
-    state (its other rows are zero, and 0·R = 0)."""
+    state (its other rows are zero, and 0·R = 0). The 1 sits at
+    :func:`one_row`, a pad row behind the packed ones."""
     first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, _, L = first.shape
     m_in = first.shape[1] + sum(e.shape[0] for e in extras)
@@ -448,8 +492,9 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
         x = to_state(part, sched.W, one_pos)
         if mont:
             _redc_rows(spec, x, m_in, x[:m_in].clone(), spec.r2_mod_p)
-            if sched.W > m_in and one_pos >= m_in:
-                x[one_pos] = fd.encode(spec, spec.r_mod_p, x.device)[:, None]
+            row = one_row(sched.W, m_in, one_pos)
+            if row is not None:
+                x[row] = fd.encode(spec, spec.r_mod_p, x.device)[:, None]
         run_steps(x)
         if mont:
             src = (x[:m_out].clone() if perm is None

@@ -28,9 +28,10 @@ A CUDA tensor goes to the hand-written kernel, or the wrapper raises: there
 is no fallback. :func:`kernel_form` names the form of the kernels that
 takes a field: "m31" (``csrc/m31_kernels.cu``, one 32-bit word an
 element), or a word form of ``csrc/step_kernels.cu`` and
-``csrc/fused_kernels.cu`` for L = 2 … 16 limbs of 16 bits, "fold<L>" for
-a prime with a pseudo-Mersenne fold (secp256k1 is "fold16", M61 "fold4")
-or "cios<L>" for any other (Montgomery residents, CIOS reduction). Each
+``csrc/fused_kernels.cu`` for L = 1 … 16 limbs of 16 bits, "fold<L>" for
+a prime with a pseudo-Mersenne fold (secp256k1 is "fold16", M61 "fold4",
+a prime below 2^16 such as 97 or 64513 "fold1") or "cios<L>" for any
+other of 2 limbs or more (Montgomery residents, CIOS reduction). Each
 form's library is built at its first use (``ops/_build.py``). A CPU tensor
 goes to the plain PyTorch version beside it (:func:`_muladd1_cols`,
 :func:`_muladd2_cols`, :func:`_mulss_cols`), which mirrors the JAX
@@ -159,12 +160,11 @@ def _m31_name(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def kernel_form(spec: FieldSpec) -> str:
     """The form of the kernels that takes ``spec``: "m31", "fold<L>" (L
-    limbs of 16 bits and a pseudo-Mersenne fold, ``spec.fold_terms``) or
-    "cios<L>" (no fold: Montgomery residents, as the JAX package keeps
-    them), for L = 2 … 16. Raises NotImplementedError naming the cause for
-    any other field: a prime below 2^16 other than M31's one-word form (one
-    16-bit limb, which the JAX package never takes to a Pallas kernel), or
-    one of more than 16 limbs."""
+    limbs of 16 bits and a pseudo-Mersenne fold, ``spec.fold_terms``, for
+    L = 1 … 16) or "cios<L>" (no fold: Montgomery residents, as the JAX
+    package keeps them, for L = 2 … 16). Raises NotImplementedError naming
+    the cause for any other field: a prime below 2^16 without a fold
+    (:func:`fields.device.check_fold`), or one of more than 16 limbs."""
     fd.check_fold(spec)
     if fd.is_m31(spec):
         return "m31"

@@ -2,7 +2,8 @@
 exports (``S0``, ``S1``, ``build_fftree``), ``eval_domain`` on both fields
 (the facade's and the native engine's), ``prepare(())``, the fields a
 tree takes (every odd prime of 2 to 16 limbs, on the card and the CPU;
-a prime of one 16-bit limb refused at construction, naming the cause),
+a prime of one 16-bit limb without a fold refused at construction,
+naming the cause),
 and DEGREE's decode of a one-limb accumulator. Needs no card: building a
 tree touches no device."""
 
@@ -57,18 +58,21 @@ M61 = spec_for_prime((1 << 61) - 1)          # 4 limbs, fold-friendly
 WIDE_FOLD = spec_for_prime((1 << 256) - 1053)  # 16 limbs, fold digit 1053
 CIOS = spec_for_prime(  # no pseudo-Mersenne fold
     0x0800000000000011000000000000000000000000000000000000000000000001)
-ONE_LIMB = spec_for_prime(65521)  # one 16-bit limb
+ONE_LIMB = spec_for_prime(40961)  # one 16-bit limb, no fold
+ONE_LIMB_FOLD = spec_for_prime(65521)  # one 16-bit limb, F = 15
 
 
 @pytest.mark.parametrize("spec,form", [
     (M61, "fold4"), (WIDE_FOLD, "fold16"), (CIOS, "cios16"),
-    (ONE_LIMB, None)], ids=["m61", "wide-fold", "cios", "one-limb"])
+    (ONE_LIMB, None), (ONE_LIMB_FOLD, "fold1")],
+    ids=["m61", "wide-fold", "cios", "one-limb", "one-limb-fold"])
 def test_unsupported_field_is_refused_for_the_card(spec, form):
-    """Every odd prime of 2 to 16 limbs has a form of the kernels: a tree
-    takes it on the card (the default device) and on the CPU, where its
-    product computes (canonical, whether the residents are canonical or
-    Montgomery). Only a prime of one 16-bit limb is refused, naming the
-    cause, on every device."""
+    """Every odd prime of 2 to 16 limbs, and every one of one 16-bit limb
+    with a pseudo-Mersenne fold, has a form of the kernels: a tree takes
+    it on the card (the default device) and on the CPU, where its product
+    computes (canonical, whether the residents are canonical or
+    Montgomery). Only a prime of one 16-bit limb without a fold is
+    refused, naming the cause, on every device."""
     if form is None:
         for make in (lambda: FFTree(spec, 16, {}),
                      lambda: FFTree(spec, 16, {}, device="cuda"),

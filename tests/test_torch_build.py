@@ -70,8 +70,8 @@ def test_a_newer_header_rebuilds(compiler, tmp_path, tmp_path_factory,
 
 def test_forms_build_at_once_each_from_its_sources(compiler, tmp_path):
     """Three forms in one call: one nvcc each, the M31 form from its own
-    source without the word forms' macros; an unknown form is refused
-    before any compile."""
+    source without the word forms' macros; an unknown form (a CIOS form
+    of one limb among them) is refused before any compile."""
     calls, _ = compiler
     got = _build.build_kernels(["fold16", "m31", "cios3", "fold16"])
     assert sorted(got) == ["cios3", "fold16", "m31"]
@@ -80,10 +80,13 @@ def test_forms_build_at_once_each_from_its_sources(compiler, tmp_path):
     assert len(calls) == 3
     (m31,) = [a for a in calls if _build.M31_SOURCES[0] in a]
     assert not any(a.startswith("-DECFFT") for a in m31)
-    for bad in ("fold1", "cios17", "limbs16", "m61"):
+    for bad in ("cios1", "fold0", "cios17", "limbs16", "m61"):
         with pytest.raises(ValueError, match="no kernel form"):
             _build.kernel_library(bad)
     assert len(calls) == 3
+    # one 16-bit limb takes the fold form only
+    assert _build.form_sources("fold1") == (
+        _build.KERNEL_SOURCES, ["-DECFFT_NL=1", "-DECFFT_MONT=0"])
 
 
 def test_failed_build_raises_and_leaves_nothing(compiler, tmp_path):

@@ -13,7 +13,7 @@ t ^ m's words as they stood before the level, after the harness checks
 that the word it hands over is its own), and ``Tile::store``. The result
 is held bit for bit against ``ops/unrolled.py::_cascade_plain`` on seeded
 numpy inputs: M31, M61 ("fold4"), a CIOS prime of 3 limbs and one of 2
-(one word), at tiles of 2, 8 and 128 rows, 1 to 12 lanes (and 72: a
+(one word), and 64513 ("fold1", one 16-bit limb), at tiles of 2, 8 and 128 rows, 1 to 12 lanes (and 72: a
 block with idle warps), 1, 14 and 16 levels of mixed kinds. Also: which
 rows a lane holds and how a xor splits into lane and register bits, the
 grid's cover of every (chunk, lane group), and the launch checks. Needs
@@ -92,7 +92,8 @@ int run(const typename AR::Consts& fd, const Levels& lv, const int32_t* cw,
 }
 
 extern "C" {
-// form 0: M31; 1: 4 limbs, fold; 2: 3 limbs, CIOS; 3: 2 limbs, CIOS.
+// form 0: M31; 1: 4 limbs, fold; 2: 3 limbs, CIOS; 3: 2 limbs, CIOS;
+// 4: one 16-bit limb, fold.
 // -1 where the launcher refuses the levels
 int h_cascade(int form, const Field* fd, const Levels* lv, const int32_t* cw,
               const int32_t* aw, int32_t* state, int start, int tw, int A,
@@ -107,6 +108,8 @@ int h_cascade(int form, const Field* fd, const Levels* lv, const int32_t* cw,
                                                start, A, B, vec);
     case 3: return run<wc::WordArith<2, true>>(*fd, *lv, cw, aw, state,
                                                start, A, B, vec);
+    case 4: return run<wc::WordArith<1, false>>(*fd, *lv, cw, aw, state,
+                                                start, A, B, vec);
   }
   return -2;
 }
@@ -132,7 +135,8 @@ M31 = FIELDS["m31"]
 # name: (harness form, field)
 FORMS = {"m31": (0, M31), "fold4": (1, spec_for_prime((1 << 61) - 1)),
          "cios3": (2, spec_for_prime(0xff8000000f)),
-         "cios2": (3, spec_for_prime(3 * (1 << 30) + 1))}
+         "cios2": (3, spec_for_prime(3 * (1 << 30) + 1)),
+         "fold1": (4, spec_for_prime(64513))}
 # tw: (window start, window rows A, state rows W): A not a multiple of 128
 # where the tile allows, so the last chunk is cut by the window's end
 SHAPES = {2: (2, 130, 136), 8: (8, 200, 216), 128: (0, 128, 256)}

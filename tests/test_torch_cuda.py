@@ -6,7 +6,10 @@ and the CPU; the general prime's forms (the fold form at 4 and 16 limbs,
 the CIOS form at 3, 13 and 16 limbs, slack 0 among them) likewise, and
 its algorithms on the card against the CPU's; the warp cascade
 (``csrc/warp_cascade.cuh``) of M31 and of the word forms of one and two
-words likewise, at ragged lane counts, a tile of 8 rows and 16 levels.
+words likewise, at ragged lane counts, a tile of 8 rows and 16 levels;
+the one-limb fold form ("fold1", p = 97 and 64513) likewise; the NTT on
+the card against the CPU and naive evaluation; a tree moved to the card
+by ``place_on`` and one read from a cache directory.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -329,7 +332,8 @@ def test_word_kernels_on_a_prime_with_slack(card, B):
 
 def test_unported_field_raises_on_card(card):
     """The STARK prime (no fold) runs on the card in the CIOS form, as the
-    CPU computes it; a prime of one 16-bit limb is refused."""
+    CPU computes it; a prime of one 16-bit limb without a fold is
+    refused."""
     spec = spec_for_prime(
         0x0800000000000011000000000000000000000000000000000000000000000001)
     gen = torch.Generator().manual_seed(3)
@@ -340,7 +344,7 @@ def test_unported_field_raises_on_card(card):
     got = torch.zeros_like(x, device=card)
     step.aff1s_ip(spec, c.to(card), got, x.to(card), 0)
     assert torch.equal(got.cpu(), want)
-    small = spec_for_prime(65521)
+    small = spec_for_prime(40961)
     z = torch.zeros((8, 1, 1), dtype=torch.int32, device=card)
     with pytest.raises(NotImplementedError, match="one 16-bit limb"):
         step.aff1s_ip(small, z[..., 0], z.clone(), z, 0)
@@ -487,7 +491,10 @@ GENERAL = [spec_for_prime(p, name) for name, p in (
      0xaacdabbb49c9c6072c54a01283037cadfde8ec5e3e1544596ebbec4cc598e9c7),
     ("cios3", 0xff8000000f),
     ("cios13", 0xd9cd502d42af1ffe0de8d79f49af6d114c4a6f188a424e61cb),
-    ("band", (1 << 256) - 1053), ("m61", (1 << 61) - 1))]
+    ("band", (1 << 256) - 1053), ("m61", (1 << 61) - 1),
+    # one 16-bit limb with a fold ("fold1"): slack 9, F = 61; slack 0,
+    # F = 1023
+    ("fold1_97", 97), ("fold1_64513", 64513))]
 
 
 def _general(spec, gen, *shape):
@@ -571,7 +578,8 @@ def test_general_algorithms_on_card_match_cpu(card, monkeypatch, name):
 # of 3 and 2 limbs, and a 2-limb fold prime
 FEW = [M31] + [spec_for_prime(p, name) for name, p in (
     ("m61", (1 << 61) - 1), ("cios3", 0xff8000000f),
-    ("cios2", 3 * (1 << 30) + 1), ("fold2", (1 << 32) - 5))]
+    ("cios2", 3 * (1 << 30) + 1), ("fold2", (1 << 32) - 5),
+    ("fold1", 64513))]
 
 
 @pytest.mark.parametrize("B", [1, 5, 64, 200, 256])
@@ -602,3 +610,89 @@ def test_warp_cascade_matches_plain_version(card, monkeypatch, spec, tw,
     assert unrolled.fused_cascade.launches[key] == before + 1
     assert torch.equal(got.cpu(), want)
     assert not torch.equal(want, state)
+
+
+# ------------------------------------------ the NTT and tree persistence
+
+
+@pytest.mark.parametrize("ex", ["scan", "unrolled"])
+@pytest.mark.parametrize("p,g,n", [(None, 3, 1024), (97, 5, 32),
+                                   (64513, 5, 1024)],
+                         ids=["stark", "p97", "p64513"])
+def test_ntt_on_card_matches_cpu_and_naive(card, monkeypatch, ex, p, g, n):
+    """ntt and intt on the card equal the CPU's plain versions on the
+    whole batch and naive evaluation on two lanes; each stage is one
+    launch of the 2-mul step of the prime's form ("cios16", "fold1")."""
+    from ecfft_tpu_torch.ntt import STARK_P, NTTPlan
+    from ecfft_tpu_torch.utils.poly import evaluate
+
+    p = p or STARK_P
+    if ex == "unrolled":
+        monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+    cpu = NTTPlan(n, p=p, generator=g, device="cpu")
+    gpu = NTTPlan(n, p=p, generator=g, device=card)
+    import random
+
+    rng = random.Random(n)
+    cs = [[rng.randrange(p) for _ in range(n)] for _ in range(3)]
+    key = step.kernel_form(gpu.spec)
+    wrapper = step.muladd2 if ex == "unrolled" else step.aff2g_ip
+    before = wrapper.launches[key]
+    ev = gpu.ntt(gpu.encode(cs))
+    torch.cuda.synchronize()
+    assert wrapper.launches[key] == before + n.bit_length() - 1
+    assert torch.equal(ev.cpu(), cpu.ntt(cpu.encode(cs)))
+    w = pow(g, (p - 1) // n, p)
+    for b in (0, 2):
+        assert list(gpu.decode(ev[b])) == [evaluate(cs[b], pow(w, i, p), p)
+                                           for i in range(n)]
+    assert [list(r) for r in gpu.decode(gpu.intt(ev))] == cs
+
+
+def test_trees_and_plans_on_the_default_device_take_its_tensors(card):
+    """A tree or an NTT plan made for "cuda" (no index, the default)
+    takes the tensors its own ``encode`` makes, which lie on "cuda:0"."""
+    from ecfft_tpu_torch.ntt import NTTPlan
+
+    tree = build_fftree_native("secp256k1", 16)
+    assert tree.device == torch.device("cuda")
+    x = tree.encode([[3 * i + 1 for i in range(16)]])
+    assert torch.equal(tree.exit(tree.enter(x)), x)
+    plan = NTTPlan(16)
+    y = plan.encode([[i for i in range(16)]])
+    assert torch.equal(plan.intt(plan.ntt(y)), y)
+    with pytest.raises(ValueError, match="int32 limbs on cuda"):
+        tree.enter(x.cpu())
+
+
+def test_place_on_card_matches_a_card_built_tree(card):
+    n = 256
+    gen = torch.Generator().manual_seed(5)
+    x = _limbs(gen, 2, n)
+    moved = build_fftree_native("secp256k1", n, device="cpu").prepare()
+    moved.place_on(card)
+    assert moved._pool.device.type == "cuda"
+    built = build_fftree_native("secp256k1", n, device=card)
+    assert torch.equal(moved.enter(x.to(card)), built.enter(x.to(card)))
+
+
+def test_cached_and_deserialized_trees_on_card(card, tmp_path):
+    from ecfft_tpu_torch.serialize import (deserialize_fftree,
+                                           serialize_fftree)
+
+    n = 256
+    gen = torch.Generator().manual_seed(6)
+    x = _limbs(gen, 2, n).to(card)
+    first = build_fftree_native("secp256k1", n, device=card)
+    first.prepare(cache_dir=str(tmp_path))
+    second = build_fftree_native("secp256k1", n, device=card)
+    second.prepare(cache_dir=str(tmp_path))
+    want = first.enter(x)
+    assert torch.equal(second.enter(x), want)
+    for compress in (True, False):
+        data = serialize_fftree(first, compress=compress)
+        t2 = deserialize_fftree("secp256k1", data, compress=compress,
+                                device=card)
+        assert serialize_fftree(t2, compress=compress) == data
+        assert torch.equal(t2.enter(x), want)
+

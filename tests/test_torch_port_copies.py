@@ -17,7 +17,7 @@ import pytest
 from ecfft_tpu.fields import registry as jreg
 from ecfft_tpu.native import build_fftree_native
 from ecfft_tpu_torch.fields import registry as treg
-from ecfft_tpu_torch.native import build_tables_native
+from ecfft_tpu_torch.native import build_tree_native
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ecfft_tpu_torch")
@@ -62,6 +62,15 @@ COPIES = ["errors", "fields.host", "utils.poly", "ec.curve",
           "fields.registry", "find_curve"]
 
 
+def _source(obj) -> str:
+    """An object's source up to the package name and the location of the
+    reference's checkout in citations (an absolute directory before
+    ``reference/src/`` names the same file as ``reference/src/``)."""
+    return re.sub(r"/\w+/reference/src/", "reference/src/",
+                  inspect.getsource(obj).replace("ecfft_tpu.",
+                                                 "ecfft_tpu_torch."))
+
+
 @pytest.mark.parametrize("mod", COPIES)
 def test_copies_have_their_originals_source(mod):
     """Every class and function of a copied module has the source of its
@@ -73,13 +82,32 @@ def test_copies_have_their_originals_source(mod):
              and obj.__module__ == port.__name__]
     assert names
     for name in names:
-        want = inspect.getsource(getattr(orig, name)).replace(
-            "ecfft_tpu.", "ecfft_tpu_torch.")
-        assert inspect.getsource(getattr(port, name)) == want, name
+        assert _source(getattr(port, name)) == _source(getattr(orig, name)), \
+            name
+
+
+# the ark-layout codec of serialize.py: every helper the two entry points
+# call, copied (the entry points differ in what they touch: tensors, and
+# the device a tree is built on)
+SERIALIZE_COPIES = [
+    "_felt_size", "_limbs_to_bytes", "_bytes_to_limbs", "_ints_to_limbs",
+    "_limbs_to_ints", "_take", "_take_len", "_check_canonical", "_w_vec",
+    "_r_vec", "_w_vec_mat", "_r_vec_mat", "_w_maps", "_r_maps",
+    "_heap_from_layers", "_layers_from_heap", "_identity_mats",
+    "TreeSection", "_write_section", "_host_batch_inv", "_read_section"]
+
+
+@pytest.mark.parametrize("name", SERIALIZE_COPIES)
+def test_serialize_codec_has_its_originals_source(name):
+    from ecfft_tpu import serialize as jser
+    from ecfft_tpu_torch import serialize as tser
+
+    assert _source(getattr(tser, name)) == _source(getattr(jser, name))
 
 
 NATIVE_METHODS = ["_io", "enter", "exit", "extend", "mextend", "degree",
-                  "redc_z0", "modular_reduce", "vanish", "table", "mats"]
+                  "redc_z0", "modular_reduce", "vanish", "table", "mats",
+                  "layer"]
 
 
 @pytest.mark.parametrize("name", NATIVE_METHODS)
@@ -110,10 +138,13 @@ def test_native_bindings_declare_the_originals_argument_types():
 
     for fn in ("ecn_enter", "ecn_exit", "ecn_extend", "ecn_mextend",
                "ecn_degree", "ecn_redc", "ecn_mod", "ecn_vanish",
-               "ecn_table", "ecn_mats", "ecn_batch_inv", "ecn_find_curve"):
+               "ecn_table", "ecn_mats", "ecn_batch_inv", "ecn_find_curve",
+               "ecn_layer"):
         port, orig = getattr(tnat.lib(), fn), getattr(jnat.lib(), fn)
         assert port.argtypes == orig.argtypes, fn
-    assert tnat.lib().ecn_degree.restype is jnat.lib().ecn_degree.restype
+    for fn in ("ecn_degree", "ecn_layer"):
+        assert getattr(tnat.lib(), fn).restype is \
+            getattr(jnat.lib(), fn).restype, fn
 
 
 @pytest.mark.parametrize("field", ["secp256k1", "m31"])
@@ -135,10 +166,20 @@ def test_build_domain_matches(n):
         [(m.numerator, m.denominator, m.p) for m in jm]
 
 
+def test_native_layers_and_maps_match():
+    """The domain's layers and maps a native-built tree carries for
+    serialization, as the JAX package's native builder fills them."""
+    jt = build_fftree_native("m31", 64)
+    _, layers, maps = build_tree_native("m31", 64)
+    assert layers == jt.f_layers
+    assert [(m.numerator, m.denominator, m.p) for m in maps] == \
+        [(m.numerator, m.denominator, m.p) for m in jt.maps]
+
+
 def test_native_tables_match():
     n = 64
     jt = build_fftree_native("secp256k1", n)
-    tt = build_tables_native("secp256k1", n)
+    tt = build_tree_native("secp256k1", n)[0]
     assert sorted(tt) == sorted(jt.tables)
     for m, t in tt.items():
         assert sorted(t) == sorted(jt.tables[m]), m

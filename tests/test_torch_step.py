@@ -190,7 +190,8 @@ def test_unported_fields_raise(field):
     Montgomery residents) each have a form of the kernels now, and the
     step computes on the CPU: 1 + 2·3 for M61, and for the STARK prime the
     Montgomery step R·1 + (R·2)(R·3)/R = R·7. A prime of one 16-bit limb
-    is still refused, naming the cause."""
+    without a fold is still refused, naming the cause; one with a fold
+    (65521) takes the "fold1" form."""
     spec = spec_for_prime(
         (1 << 61) - 1 if field == "m61" else
         0x0800000000000011000000000000000000000000000000000000000000000001)
@@ -208,7 +209,8 @@ def test_unported_fields_raise(field):
     assert torch.equal(out[..., 0], enc(7))
     assert step.kernel_form(FIELDS["m31"]) == "m31"
     assert step.kernel_form(SPEC) == "fold16"
-    small = spec_for_prime(65521)  # one 16-bit limb
+    assert step.kernel_form(spec_for_prime(65521)) == "fold1"
+    small = spec_for_prime(40961)  # one 16-bit limb, no fold
     with pytest.raises(NotImplementedError, match="one 16-bit limb"):
         step.kernel_form(small)
     z = torch.zeros((8, 1, 1), dtype=torch.int32)

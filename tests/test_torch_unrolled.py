@@ -222,9 +222,9 @@ def test_fusable_lists_match_jax(monkeypatch, n, tw):
 
 def _pool_offsets(n):
     """The pool offsets of a size-n tree (the schedules' only input)."""
-    from ecfft_tpu_torch.native import build_tables_native
+    from ecfft_tpu_torch.native import build_tree_native
 
-    tables = tables_from_numpy(build_tables_native(FIELD, n))
+    tables = tables_from_numpy(build_tree_native(FIELD, n)[0])
     return tsch.build_pool(SPEC, tables)[1]
 
 

@@ -2,9 +2,10 @@
 compiled with g++ on the CPU (the very header nvcc compiles for the card)
 into a small ctypes harness in ``ecfft_tpu_torch/_build/``, and held
 against Python integers. The harness instantiates the header's templates
-at 2, 3, 4, 7, 8, 13, 14, 15 and 16 limbs (1, 2, 4, 7 and 8 words, odd limb
-counts among them), in both forms: the fold (a pseudo-Mersenne prime,
-canonical values) and CIOS (any other prime, Montgomery values with R =
+at 1, 2, 3, 4, 7, 8, 13, 14, 15 and 16 limbs (1, 2, 4, 7 and 8 words, odd
+limb counts among them), in both forms: the fold (a pseudo-Mersenne prime,
+canonical values; at one limb the only form, "fold1", for 97, 64513 and
+65521) and CIOS (any other prime, Montgomery values with R =
 2^(16L), an odd L's last round on a 16-bit digit). Checked: pack/unpack
 and the strided load/store, the 1- and 2-product multiply-adds, both
 reductions, the three functions the kernels call (fma1, fma2, mul) and the
@@ -91,8 +92,8 @@ extern "C" {
 int h_op(int nl, int which, const Field* fd, const uint32_t* a,
          const uint32_t* b, const uint32_t* c, const uint32_t* d,
          uint32_t* r) {
-  switch (nl) { FORM(2) FORM(3) FORM(4) FORM(7) FORM(8) FORM(13) FORM(14)
-                FORM(15) FORM(16) }
+  switch (nl) { FORM(1) FORM(2) FORM(3) FORM(4) FORM(7) FORM(8) FORM(13)
+                FORM(14) FORM(15) FORM(16) }
   return 1;
 }
 #define LS(N) case N: load_store<N>(src, dst, stride, w); return 0;
@@ -392,6 +393,9 @@ FORM_PRIMES = [
     ("stark",
      0x0800000000000011000000000000000000000000000000000000000000000001),
     ("cios256", CIOS256),
+    # one 16-bit limb with a fold ("fold1"): F = 61, slack 9; F = 1023,
+    # slack 0 (the fold loop's five rounds); F = 15, slack 0
+    ("fold1_97", 97), ("fold1_64513", 64513), ("fold1_65521", 65521),
 ]
 FORM_SPECS = [spec_for_prime(p, name) for name, p in FORM_PRIMES]
 
@@ -405,6 +409,25 @@ def test_form_primes_cover_each_form():
     assert by["cios256"].p.bit_length() == 256
     assert all(s.fold_terms is None for s in FORM_SPECS
                if s.name.startswith("cios") or s.name == "stark")
+    ones = [s for s in FORM_SPECS if s.num_limbs == 1]
+    assert [step.kernel_form(s) for s in ones] == ["fold1"] * 3
+    assert [s.fold_terms for s in ones] == [((0, 61),), ((0, 1023),),
+                                           ((0, 15),)]
+
+
+def test_one_limb_fold_takes_five_rounds(lib):
+    """p = 64513 (F = 1023): the largest sum of two products, and every
+    value below 2^33 whose fold runs the most rounds, reduce exactly."""
+    spec = spec_for_prime(64513)
+    p = spec.p
+    top = 2 * (p - 1) ** 2
+    vals = [top, top - 1, (1 << 33) - 1, (1 << 16) + 1022, 1 << 16,
+            (1 << 16) - 1, p, p - 1, 0]
+    for v in vals:
+        assert call(lib, 1, REDUCE, spec, v) == v % p
+    assert call(lib, 1, FMA2, spec, p - 1, p - 1, p - 1, p - 1) == top % p
+    assert call(lib, 1, PACK, None, 0xBEEF) == 0xBEEF
+    assert call(lib, 1, UNPACK, None, 0xBEEF) == [0xBEEF]
 
 
 def _want(spec, mont: bool, value: int) -> int:
