@@ -72,6 +72,25 @@ stops the run with a non-zero exit:
    (and the EXIT on the cached one), and on a tree built on the CPU,
    prepared there and moved to the card with ``place_on``; each step
    with its seconds and bytes;
+   8d. the device bootstrap, the unscheduled algorithms and sharding:
+   (a) ``FFTree.build`` on the card for secp256k1 and M31 at n = 2^16
+   (phase 3's and 3b's trees), the 256-bit CIOS prime at n = 2^16 and
+   the STARK prime at n = 2^10 (3c's), 64513 at n = 64, every table of
+   every size and each ``mats`` plane equal bit for bit to the native
+   engine's, each bootstrap's seconds beside the native build's (timed in
+   phases 3–3c) and its launches per kernel; (b) on phase 3's tree at
+   B = 256 each ``*_unscheduled`` algorithm (ENTER with EXIT's round
+   trip, EXTEND and MEXTEND onto both moieties over 2^15 points, DEGREE on
+   lanes of known degrees, REDC by Z0 and Z1 and MOD by the tree's own
+   tables, VANISH over 2^15 points) equal on the whole batch to the
+   scheduled method on the same input, both timed warm (best of 2), and
+   a ``ShardedFFTree`` over two shards of the card running the same
+   inputs, plus REDC and MOD by tables given at run time: the shards,
+   concatenated, equal to the unsharded output, each on its device;
+   (c) the unscheduled algorithms likewise on phase 3b's M31 tree at
+   B = 256. Throughout 8d the kernels' plain versions (and the plain
+   field product) must see no CUDA tensor, and mulss, muladd1 and muladd2
+   must launch;
 9. M31: a batch of B = 2048 at n = 2^16 through all eight algorithms on
    both executors (ENTER with its EXIT round trip, then the others as in
    phase 8), each gated bit for bit against the native engine on lanes 0
@@ -107,7 +126,8 @@ stops the run with a non-zero exit:
 14. a JSON line of the kernels (the nine 16-limb forms, whose launches are
    phases 6–8's, the nine M31 forms, phase 9's, the nine of each general
    form, phase 10's (and phase 11's STARK NTT for "cios16"), and the nine
-   "fold1" forms, phases 11's and 12's; 72 in all, named
+   "fold1" forms, phases 11's and 12's, each with its form's launches of
+   phase 8d added; 72 in all, named
    ``"aff1s_ip[cios16]"`` and so on), the ``nvidia-smi`` line, and last
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -125,7 +145,7 @@ import types
 
 import torch
 
-from ecfft_tpu_torch import build_fftree_native
+from ecfft_tpu_torch import FFTree, build_fftree_native
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import (FIELDS, register_field,
                                              spec_for_prime)
@@ -134,6 +154,7 @@ from ecfft_tpu_torch.native import NativeFFTree, native_library
 from ecfft_tpu_torch.ntt import STARK_GENERATOR, STARK_P, NTTPlan
 from ecfft_tpu_torch.ops import _build, emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
+from ecfft_tpu_torch.parallel.sharding import ShardedFFTree, make_mesh
 from ecfft_tpu_torch.serialize import deserialize_fftree, serialize_fftree
 from ecfft_tpu_torch.serialize_native import load_tables_npz, save_tables_npz
 from ecfft_tpu_torch.utils.poly import evaluate
@@ -1546,6 +1567,199 @@ def persistence(tree, gen, batch=BATCH):
         f"and moved trees; EXIT equal on the cached one")
 
 
+# ------------------ the bootstrap, the unscheduled forms and sharding
+
+# the kernels' plain versions (and the plain field product): phase 8d
+# counts their calls with a CUDA tensor among the arguments, which must
+# stay 0 (a product on the card is a kernel launch)
+PLAIN = ((step, "_mulss_cols"), (step, "_muladd1_cols"),
+         (step, "_muladd2_cols"), (fd, "mul"))
+
+
+class PlainOnCard:
+    """While active, count each plain version's calls on CUDA tensors."""
+
+    def __enter__(self):
+        self.calls = collections.Counter()
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN]
+        for mod, name, fn in self.saved:
+            def spy(*a, _fn=fn, _name=name, **k):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def same_tables(got, want, label) -> int:
+    """Every table of every size and each plane of every ``mats`` depth
+    equal bit for bit; returns how many tensors were compared."""
+    check(sorted(got) == sorted(want), f"{label}: the bootstrap's sizes")
+    count = 0
+    for m, t in want.items():
+        check(sorted(got[m]) == sorted(t), f"{label}: size {m}'s tables")
+        for name, v in t.items():
+            if name == "mats":
+                check(len(got[m][name]) == len(v),
+                      f"{label}: size {m}'s mats depths")
+                pairs = [(g, w) for gq, wq in zip(got[m][name], v)
+                         for g, w in zip(gq, wq)]
+            else:
+                pairs = [(got[m][name], v)]
+            for g, w in pairs:
+                check(torch.equal(g, w), f"{label}: the bootstrap's {name} "
+                                         f"of size {m} differs from the "
+                                         "native engine's")
+                count += 1
+    return count
+
+
+def bootstrap(label, spec, n, native_tree, native_build_s):
+    """``FFTree.build`` on the card, its tables held to ``native_tree``'s
+    (the native engine's); its seconds beside the native build's, its
+    launches per kernel. Returns (the tree, its launches)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tree = FFTree.build(spec, n, device=DEV)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    counts = read_counts(spec)
+    compared = same_tables(tree.tables, native_tree.tables, label)
+    log(f"bootstrap {label} (n = {n}, form {step.kernel_form(spec)}): "
+        f"{boot_s:.3f} s, the native engine's tables {native_build_s:.3f} "
+        f"s; {compared} tables and mats planes equal the native engine's "
+        f"bit for bit; launches "
+        f"{ {k: v for k, v in counts.items() if v} } = "
+        f"{sum(counts.values())}")
+    return tree, counts
+
+
+def timed_best(fn, reps=2):
+    """Best of ``reps`` warm calls, fenced by ``torch.cuda.synchronize()``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def unscheduled(tree, gen, label, batch, stree=None):
+    """Each ``*_unscheduled`` algorithm on ``batch`` lanes, equal on the
+    whole batch to the scheduled method on the same input (which phases
+    6–9 hold to the native engine); ENTER's output is EXIT's input, and
+    EXIT's output must be ENTER's input; REDC and MOD by the tree's own
+    tables xnn_s and z0z0_rem_xnn_s. Each timed warm, best of 2, beside
+    the scheduled method. With ``stree`` (a ShardedFFTree of the tree) the
+    sharded method runs on the same input too: its shards, concatenated,
+    equal the scheduled output, each shard on its device. Returns the
+    launches of the unscheduled calls."""
+    S0, S1 = emit.S0, emit.S1
+    N, spec = tree.n, tree.spec
+    h = N // 2
+    a, c = (tree.tables[N][k].to(DEV) for k in ("xnn_s", "z0z0_rem_xnn_s"))
+    ev, degs = degree_batch(tree, gen, random.Random(14), batch)
+    algs = [  # name, unscheduled, scheduled, its input (points or a batch)
+        ("ENTER", lambda x: tree.enter_unscheduled(x), "enter", (), N),
+        ("EXIT", lambda x: tree.exit_unscheduled(x), "exit", (), None),
+        ("EXTEND onto S0", lambda x: tree.extend_unscheduled(x, S0),
+         "extend", (S0,), h),
+        ("EXTEND onto S1", lambda x: tree.extend_unscheduled(x, S1),
+         "extend", (S1,), h),
+        ("MEXTEND onto S0", lambda x: tree.mextend_unscheduled(x, S0),
+         "mextend", (S0,), h),
+        ("MEXTEND onto S1", lambda x: tree.mextend_unscheduled(x, S1),
+         "mextend", (S1,), h),
+        ("DEGREE", lambda x: tree.degree_unscheduled(x), "degree", (), ev),
+        ("REDC by Z0, a = X^(n/2)",
+         lambda x: tree._redc_unscheduled(x, a, S0), "redc_z0", (), N),
+        ("REDC by Z1, a = X^(n/2)",
+         lambda x: tree._redc_unscheduled(x, a, S1), "redc_z1", (), N),
+        ("MOD, a = X^(n/2)",
+         lambda x: tree.modular_reduce_unscheduled(x, a, c),
+         "modular_reduce", (), N),
+        ("VANISH", lambda x: tree.vanish_unscheduled(x), "vanish", (), h),
+    ]
+    totals, rows, coeffs = collections.Counter(), [], None
+    for name, run, method, args, size in algs:
+        if size is None:  # EXIT: ENTER's output
+            x = entered
+        elif isinstance(size, int):
+            x = rand_limbs((batch, size), gen, spec)
+        else:
+            x = size
+        torch.cuda.synchronize()
+        reset_counts()
+        out = run(x)
+        torch.cuda.synchronize()
+        counts = read_counts(spec)
+        totals.update(counts)
+        want = getattr(tree, method)(x, *args)
+        check(torch.equal(out, want), f"{label} {name}: the unscheduled "
+                                      "form differs from the scheduled one")
+        if method == "degree":
+            check(out.tolist() == degs, f"{label} {name}: the degrees")
+        if method == "enter":
+            coeffs, entered = x, out
+        if method == "exit":
+            check(torch.equal(out, coeffs), f"{label}: EXIT does not "
+                                            "round-trip ENTER")
+        best_u = timed_best(lambda: run(x))
+        best_s = timed_best(lambda: getattr(tree, method)(x, *args))
+        shard_note = ""
+        if stree is not None:
+            shards = getattr(stree, method)(x, *args)
+            check(len(shards) == len(stree.mesh)
+                  and all(o.device == d and o.shape[0] == batch // len(
+                      stree.mesh) for o, d in zip(shards, stree.mesh))
+                  and torch.equal(torch.cat(shards), want),
+                  f"{label} {name}: the sharded output differs")
+            shard_note = f"; sharded over {len(stree.mesh)} equal"
+            del shards
+        log(f"{label} {name} unscheduled, B={batch}: == scheduled on the "
+            f"whole batch{shard_note}; launches "
+            f"{ {k: v for k, v in counts.items() if v} } = "
+            f"{sum(counts.values())}; {batch / best_u:.3f} polys/s "
+            f"unscheduled, {batch / best_s:.3f} scheduled (scan)")
+        rows.append((name, sum(counts.values()), batch / best_u,
+                     batch / best_s))
+        del out, want
+        torch.cuda.empty_cache()
+    del coeffs, entered
+    log(f"algorithm | launches (unscheduled) | polys/s unscheduled | "
+        f"polys/s scheduled (scan) at B={batch}")
+    for name, launches, tu, ts in rows:
+        log(f"{name} | {launches} | {tu:.3f} | {ts:.3f}")
+    return totals
+
+
+def sharded_by_tables(tree, stree, gen, batch):
+    """REDC and MOD by tables given at run time, sharded: the shards,
+    concatenated, equal the unsharded tree's output."""
+    N, spec = tree.n, tree.spec
+    ga, gc = rand_limbs((N,), gen, spec), rand_limbs((N,), gen, spec)
+    ga = ga.clamp(min=1) if fd.is_m31(spec) else ga | 1
+    x = rand_limbs((batch, N), gen, spec)
+    for name, method, args in (
+            ("REDC by Z0, general modulus", "redc_z0", (ga,)),
+            ("REDC by Z1, general modulus", "redc_z1", (ga,)),
+            ("MOD, general modulus", "modular_reduce", (ga, gc))):
+        want = getattr(tree, method)(x, *args)
+        shards = getattr(stree, method)(x, *args)
+        check(all(o.device == d for o, d in zip(shards, stree.mesh))
+              and torch.equal(torch.cat(shards), want),
+              f"{name}: the sharded output differs")
+        log(f"{name} sharded over {len(stree.mesh)}, B={batch}: equal to "
+            "the unsharded output, each shard on its device")
+
+
 def bench_suite(args) -> None:
     """``python -m ecfft_tpu_torch.bench_suite`` with ``args`` in a
     process of its own; it must exit 0. Prints its table."""
@@ -1638,8 +1852,11 @@ def main() -> int:
     gen.manual_seed(1)
     with Phase("3 tree, pool, schedules and the unrolled analysis (set-up)"):
         t0 = time.perf_counter()
-        tree = build_fftree_native(FIELD, N, device=DEV).prepare()
-        log(f"tree, pool and schedules: {time.perf_counter() - t0:.3f} s")
+        tree = build_fftree_native(FIELD, N, device=DEV)
+        build_s = {FIELD: time.perf_counter() - t0}
+        tree.prepare()
+        log(f"tree (the native engine's tables: {build_s[FIELD]:.3f} s), "
+            f"pool and schedules: {time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
         os.environ["ECFFT_EXECUTOR"] = "unrolled"
         tree.prepare()
@@ -1660,8 +1877,11 @@ def main() -> int:
             f"{cascade_run[2]}")
     with Phase("3b M31: tree, pool, schedules and the unrolled analysis"):
         t0 = time.perf_counter()
-        tree31 = build_fftree_native("m31", M31_N, device=DEV).prepare()
-        log(f"M31 tree, pool ({tree31._pool.shape[0]} rows) and schedules: "
+        tree31 = build_fftree_native("m31", M31_N, device=DEV)
+        build_s["m31"] = time.perf_counter() - t0
+        tree31.prepare()
+        log(f"M31 tree (the native engine's tables: {build_s['m31']:.3f} "
+            f"s), pool ({tree31._pool.shape[0]} rows) and schedules: "
             f"{time.perf_counter() - t0:.3f} s")
         t0 = time.perf_counter()
         os.environ["ECFFT_EXECUTOR"] = "unrolled"
@@ -1677,7 +1897,9 @@ def main() -> int:
         gtrees = {}
         for label, (n, _, _) in PATHS.items():
             t0 = time.perf_counter()
-            gtree = build_fftree_native(GSPEC[label], n, device=DEV).prepare()
+            gtree = build_fftree_native(GSPEC[label], n, device=DEV)
+            build_s[label] = time.perf_counter() - t0
+            gtree.prepare()
             os.environ["ECFFT_EXECUTOR"] = "unrolled"
             gtree.prepare()
             os.environ.pop("ECFFT_EXECUTOR")
@@ -1800,6 +2022,50 @@ def main() -> int:
     with Phase("8c persistence on phase 3's tree: serialize, npz tables, "
                "the cache directory and place_on"):
         persistence(tree, gen)
+
+    # 8d: launches per form of the bootstrap, the unscheduled forms and
+    # sharding, and the plain versions' calls on the card (none allowed)
+    new_launches = collections.defaultdict(collections.Counter)
+    with PlainOnCard() as plain:
+        with Phase("8d-a the device bootstrap on the card against the "
+                   "native engine's tables"):
+            t0 = time.perf_counter()
+            ftree = build_fftree_native(GSPEC["fold1"], FOLD1_N, device=DEV)
+            build_s["fold1"] = time.perf_counter() - t0
+            for label, spec, n, native_tree in (
+                    (FIELD, SPEC, N, tree), ("m31", M31, M31_N, tree31),
+                    ("cios16", GSPEC["cios16"], PATHS["cios16"][0],
+                     gtrees["cios16"][0]),
+                    ("stark", GSPEC["stark"], PATHS["stark"][0],
+                     gtrees["stark"][0]),
+                    ("fold1", GSPEC["fold1"], FOLD1_N, ftree)):
+                btree, counts = bootstrap(label, spec, n, native_tree,
+                                          build_s[label])
+                new_launches[step.kernel_form(spec)].update(counts)
+                del btree
+                torch.cuda.empty_cache()
+            del ftree
+        with Phase(f"8d-b the unscheduled algorithms on phase 3's tree "
+                   f"(n = {N}, B = {BATCH}) against the scheduled ones, "
+                   "and sharded over two shards of one card"):
+            stree = ShardedFFTree(tree, make_mesh([DEV, DEV])).prepare()
+            new_launches["fold16"].update(
+                unscheduled(tree, gen, FIELD, BATCH, stree))
+            sharded_by_tables(tree, stree, gen, BATCH)
+            del stree
+        with Phase(f"8d-c the unscheduled algorithms on phase 3b's M31 tree "
+                   f"(n = {M31_N}, B = {BATCH}) against the scheduled "
+                   "ones"):
+            new_launches["m31"].update(
+                unscheduled(tree31, gen, "M31", BATCH))
+    log(f"phase 8d: plain-version calls on CUDA tensors {dict(plain.calls)}"
+        f"; launches {({f: dict(c) for f, c in new_launches.items()})}")
+    check(not plain.calls, f"a plain version ran on the card in phase 8d: "
+                           f"{dict(plain.calls)}")
+    for form in ("fold16", "m31"):
+        check(all(new_launches[form][k] > 0
+                  for k in ("mulss", "muladd1", "muladd2")),
+              f"phase 8d launched no mulss, muladd1 or muladd2 of {form}")
     del tree, nt
     torch.cuda.empty_cache()
 
@@ -1858,25 +2124,27 @@ def main() -> int:
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
-        launches = (scan_launches if k in SCAN_KERNELS else un_launches)[k]
+        launches = (scan_launches if k in SCAN_KERNELS
+                    else un_launches)[k] + new_launches["fold16"][k]
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         **kstats[k]})
     for k, (_, replaces) in KERNELS.items():
         kernels.append({"name": f"{k}[m31]", "route": "cuda",
                         "source": M31_SRC, "replaces": replaces,
-                        "launches": m31_launches[k], **m31_stats[k]})
+                        "launches": m31_launches[k] + new_launches["m31"][k],
+                        **m31_stats[k]})
     for label, stats in gstats.items():
         for k, (src, replaces) in KERNELS.items():
             launches = glaunches[label][k] + (
                 glaunches["stark"][k] + nlaunch["stark"][k]
-                if label == "cios16" else 0)
+                + new_launches["cios16"][k] if label == "cios16" else 0)
             kernels.append({"name": f"{k}[{label}]", "route": "cuda",
                             "source": src, "replaces": replaces,
                             "launches": launches, **stats[k]})
     for k, (src, replaces) in KERNELS.items():
         launches = (fold1_launches[k] + nlaunch["fold1 64513"][k]
-                    + nlaunch["fold1 97"][k])
+                    + nlaunch["fold1 97"][k] + new_launches["fold1"][k])
         kernels.append({"name": f"{k}[fold1]", "route": "cuda",
                         "source": src, "replaces": replaces,
                         "launches": launches, **fold1_stats[k]})

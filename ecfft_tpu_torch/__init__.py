@@ -9,16 +9,21 @@ runs (``fields.registry``), on the schedule machine, on the scan executor
 or (``ECFFT_EXECUTOR=unrolled``) the unrolled one, with every step kernel
 written in CUDA for Hopper; the classical NTT it is compared with
 (``ntt.NTTPlan``); tree persistence (``serialize``, ``serialize_native``,
-``FFTree.prepare(cache_dir=…)``, ``FFTree.place_on``); and the per-op
-bench suite (``python -m ecfft_tpu_torch.bench_suite``). Trees and plans
-live on the card unless the caller passes ``device="cpu"``::
+``FFTree.prepare(cache_dir=…)``, ``FFTree.place_on``); the per-op
+bench suite (``python -m ecfft_tpu_torch.bench_suite``); the device
+bootstrap (``FFTree.build``), the unscheduled forms of the eight
+algorithms (``FFTree.*_unscheduled``, ``ops/core.py``) and batch sharding
+over several devices (``parallel.sharding``). Trees and plans live on
+the card unless the caller passes ``device="cpu"``::
 
     import ecfft_tpu_torch as ec
 
-    tree = ec.build_fftree("secp256k1", 1 << 10)  # on "cuda"
+    tree = ec.build_fftree("secp256k1", 1 << 10)  # native tables, "cuda"
     coeffs = tree.encode([[...], [...]])   # (B, n, 16) int32 limbs
     evals = tree.enter(coeffs)             # coeffs -> evals
     back = tree.exit(evals)                # evals -> coeffs
+    boot = ec.FFTree.build("secp256k1", 1 << 10)  # tables built on the card
+    same = boot.enter_unscheduled(coeffs)  # no schedule: level scans
 """
 
 from ecfft_tpu_torch.errors import (

@@ -10,18 +10,34 @@ prime of 2 limbs or more in Montgomery form with CIOS reduction (the
 STARK prime, a fresh prime from
 ``fields.registry.field_from_curve_search``); see
 ``ops.step.kernel_form``. Only a prime below 2^16 without a fold is
-refused. The methods carry the JAX package's names and arguments; its
-``*_unscheduled`` cross-validation forms are not ported.
+refused. The methods carry the JAX package's names and arguments, the
+``*_unscheduled`` cross-validation forms among them: the same eight
+algorithms as direct level scans with no schedule (``ops/core.py``), on
+the same kernels.
+
+Two builders fill the tables. :func:`build_fftree_native` (alias
+``build_fftree``) has the native engine compute them on the host;
+:meth:`FFTree.build` is the JAX package's device bootstrap: the tables
+computed bottom-up on the tree's device (the card unless the caller names
+the CPU), every product a kernel launch, in the reference's dependency
+order, the Fermat inversions of the tables that depend on the domain alone
+batched into one chain each. Both give the same bits (held in the tests
+and on the card); ``build_fftree`` stays the native builder because every
+CPU test builds its trees with it, and the bootstrap's plain int64 Fermat
+chains there would cost seconds a tree.
 
 The tables (``{m: {name: (rows, L) int32, "mats": [...]}}``, the JAX
-package's layout) stay on the CPU: they feed only the coefficient pool,
-which is built there once (:meth:`FFTree.prepare`) and then moved to the
-tree's device with the schedules' residual banks. Batches are (..., n, L)
-int32 tensors on that device (L limbs of 16 bits, or M31's one 32-bit
-limb) of canonical values: the card (``"cuda"``) unless the caller names
-another. Constructing a tree touches no device. With Montgomery residents
-the pool is converted once, when it is built, and each call's state on
-the way in and out (``ops/schedule.py::run_chunks``).
+package's layout) stay on the CPU, whichever builder made them: they feed
+the coefficient pool, which is built there once (:meth:`FFTree.prepare`)
+and then moved to the tree's device with the schedules' residual banks,
+and the unscheduled forms, which keep their tables in a cache on the
+device (the EXTEND coefficients of each size, :func:`_tile_extend`).
+Batches are (..., n, L) int32 tensors on that device (L limbs of 16 bits,
+or M31's one 32-bit limb) of canonical values: the card (``"cuda"``)
+unless the caller names another. Constructing a tree from tables touches
+no device. With Montgomery residents the pool is converted once, when it
+is built, and each call's state on the way in and out
+(``ops/schedule.py::run_chunks``).
 
 ``ECFFT_EXECUTOR=unrolled`` runs the transforms on the unrolled executor
 (``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
@@ -46,14 +62,13 @@ import numpy as np
 import torch
 
 from ecfft_tpu_torch.convert import tables_from_numpy
-from ecfft_tpu_torch.errors import SizeError
+from ecfft_tpu_torch.errors import SizeError, TreeConstructionError
 from ecfft_tpu_torch.fields import device as fd
-from ecfft_tpu_torch.fields.registry import FieldSpec, get_spec
+from ecfft_tpu_torch.fields.registry import FieldSpec, build_domain, get_spec
 from ecfft_tpu_torch.native import build_tree_native
-from ecfft_tpu_torch.ops import emit, step
-from ecfft_tpu_torch.ops.schedule import (build_pool, pool_to_mont,
-                                          run_schedule, schedule_entry,
-                                          with_analysis)
+from ecfft_tpu_torch.ops import core, emit, step
+from ecfft_tpu_torch.ops.schedule import (build_pool, run_schedule,
+                                          schedule_entry, with_analysis)
 from ecfft_tpu_torch.ops.emit import S0, S1
 
 # algorithm → emitter(pool offsets, prime, size, moiety)
@@ -81,6 +96,212 @@ _EMITTERS = {
 _POOL_FORMAT = 6
 
 
+def _ilog2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+def _tile_extend(spec: FieldSpec, mats, tree_size: int) -> dict:
+    """Pre-scatter the Lemma-3.2 matrices into per-position butterfly
+    coefficient tables for the compile-flat EXTEND (see ops.core.extend).
+
+    For flat position p at depth d (butterfly bit b, half = 2^b):
+      bit clear: out[p] = M[i',0,0]·x[p] + M[i',0,1]·x[p^half]  (row 0)
+      bit set:   out[p] = M[i',1,1]·x[p] + M[i',1,0]·x[p^half]  (row 1)
+    with i' = p & (half−1) the shared matrix index. Returns
+    {"shifts": (logm,), S0: (dec, rec), S1: (dec, rec)} with coeff arrays
+    (logm, m, 2, L). Pure numpy — the tables are constants and eager
+    device ops here would pay per-op dispatch on remote backends.
+    """
+    m = tree_size // 2
+    L = spec.num_limbs
+    logm = _ilog2(m)
+    out = {"shifts": np.asarray([m >> (d + 1) for d in range(logm)],
+                                dtype=np.int32)}
+    mats_np = [tuple(np.asarray(x) for x in quad) for quad in mats]
+    for moiety in (S0, S1):
+        mkey = "s0" if moiety == S0 else "s1"
+        if logm == 0:
+            z = np.zeros((0, 1, 2, L), dtype=np.uint32)
+            out[mkey] = (z, z)
+            continue
+        dec_list, rec_list = [], []
+        for d in range(logm):
+            half = m >> (d + 1)
+            iota = np.arange(m)
+            bitv = ((iota & half) != 0)[:, None]
+            ipr = iota & (half - 1)
+            dec = mats_np[d][0 if moiety == S0 else 1]
+            rec = mats_np[d][2 if moiety == S0 else 3]
+            for src, acc in ((dec, dec_list), (rec, rec_list)):
+                sel = np.take(src, ipr, axis=0)  # (m, 2, 2, L)
+                c_self = np.where(bitv, sel[:, 1, 1, :], sel[:, 0, 0, :])
+                c_part = np.where(bitv, sel[:, 1, 0, :], sel[:, 0, 1, :])
+                acc.append(np.stack([c_self, c_part], axis=1))
+        out[mkey] = (np.stack(dec_list), np.stack(rec_list))
+    return out
+
+
+def _ext_on(spec: FieldSpec, mats, tree_size: int, device) -> dict:
+    """:func:`_tile_extend`'s tables for ``ops.core``: int32 tensors on
+    ``device``, the coefficients in the residents' form."""
+    def put(a):
+        t = torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+        if not t.numel():
+            return t
+        return step.to_resident(spec, t.reshape(-1, spec.num_limbs)
+                                ).reshape(t.shape)
+
+    ext = _tile_extend(spec, [tuple(q.cpu() for q in quad) for quad in mats],
+                       tree_size)
+    return {"shifts": ext["shifts"],
+            **{k: tuple(put(a) for a in ext[k]) for k in ("s0", "s1")}}
+
+
+def _require(device: torch.device) -> None:
+    """Raise where ``device`` is a card and this machine has none: an entry
+    point that computes on the card never carries on on the CPU."""
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {device}: pass "
+                           "device=\"cpu\" to compute on the CPU")
+
+
+# ----------------------------------------------------- device bootstrap
+
+
+def _horner(spec: FieldSpec, coeffs: list, x):
+    """Evaluate a (short, host-known) polynomial at device points."""
+    acc = fd.encode(spec, coeffs[-1], x.device).expand_as(x)
+    for c in reversed(coeffs[:-1]):
+        acc = fd.add(spec, step.mul(spec, acc, x),
+                     fd.encode(spec, c, x.device))
+    return acc
+
+
+def _build_mats(spec: FieldSpec, den_coeffs: tuple, layer_pts):
+    """Recombine matrices for one layer of one tree size, and their
+    determinants, whose inverses :func:`_dec_mats` takes: the bootstrap
+    inverts every size's determinants in one Fermat chain, since they
+    depend on the domain alone.
+
+    Lemma 3.2 of ECFFT-I (fftree.rs:345-362): with v the denominator of
+    the layer's rational map and (s0, s1) a matched point pair,
+    v0 = v(s0)^(d/2−1), R = [[v0, s0·v0], [v1, s1·v1]], D = R⁻¹.
+    Returns ((d, 2, 2, L) recombine, (d, L) determinants).
+    """
+    d = layer_pts.shape[0] // 2
+    v = step.pow_int(spec, _horner(spec, list(den_coeffs), layer_pts),
+                     d // 2 - 1)
+    sv = step.mul(spec, layer_pts, v)
+    r00, r01, r10, r11 = v[:d], sv[:d], v[d:], sv[d:]
+    rec = torch.stack([torch.stack([r00, r01], dim=-2),
+                       torch.stack([r10, r11], dim=-2)], dim=-3)
+    det = fd.sub(spec, step.mul(spec, r00, r11), step.mul(spec, r01, r10))
+    return rec, det
+
+
+def _dec_mats(spec: FieldSpec, rec, det_inv):
+    """D = R⁻¹ = [[r11, −r01], [−r10, r00]]·det⁻¹ of (d, 2, 2, L)
+    recombine matrices."""
+    adj = torch.stack([rec[:, 1, 1], fd.neg(spec, rec[:, 0, 1]),
+                       fd.neg(spec, rec[:, 1, 0]), rec[:, 0, 0]], dim=1)
+    return step.mul(spec, adj, det_inv[:, None]).reshape(rec.shape)
+
+
+def _xnn_step(spec: FieldSpec, leaves: dict, sizes):
+    """⟨X^(m/2) ≀ S⟩ and ⟨X^(m/4) ≀ S⟩ of every size m (the second from
+    m = 4), with their inverses: the tables depend on the leaves alone,
+    so one Fermat chain inverts them all. Returns {m: (xnn_s, xnn_s_inv,
+    xnnnn_s, xnnnn_s_inv)}, size 2's without the last two."""
+    pows = [(m, step.pow_int(spec, leaves[m], e))
+            for m in sizes for e in (m // 2, m // 4) if e]
+    if not pows:
+        return {}
+    invs = step.inv(spec, torch.cat([x for _, x in pows])).split(
+        [x.shape[0] for _, x in pows])
+    out: dict = {}
+    for (m, x), xi in zip(pows, invs):
+        out[m] = out.get(m, ()) + (x, xi)
+    return out
+
+
+def _z_step(spec: FieldSpec, ext, s, xnn, st, vt_prev, leaves2):
+    """One size's z-table bootstrap on the device (fftree.rs:384-460), in
+    the reference's dependency order: z0_s1 (the half-size tables and
+    EXTEND), z1_s0 (VANISH, which needs z0_s1), both inverted in one
+    Fermat chain, then z0z0/z1z1 (MOD and EXTEND). ``xnn`` = the size's
+    tables of :func:`_xnn_step`, ``st`` = the half-size tables,
+    ``vt_prev`` = {size: {ext, z0_s1}} for all smaller sizes (what VANISH
+    consumes).
+    """
+    m = s.shape[0]
+    zeros_half = torch.zeros_like(st["z0_s1"])
+    st_z0_s0 = core._interleave(zeros_half, st["z0_s1"])
+    st_z1_s0 = core._interleave(st["z1_s0"], zeros_half)
+    st_z0_s1 = core.extend(spec, ext, st_z0_s0, S1)
+    st_z1_s1 = core.extend(spec, ext, st_z1_s0, S1)
+    z0_s1 = step.mul(spec, st_z0_s1, st_z1_s1)
+
+    vt = dict(vt_prev)
+    vt[m] = {"ext": ext, "z0_s1": z0_s1}
+    z1_s = core.vanish(spec, vt, leaves2, s[1::2])
+    z1_s0 = z1_s[0::2].contiguous()
+
+    z0_inv_s1, z1_inv_s0 = step.inv(spec, torch.cat([z0_s1, z1_s0])).split(
+        m // 2)
+
+    xnn_s, xnn_s_inv, xnnnn_s, xnnnn_s_inv = xnn
+    sq_s0 = step.mul(spec, st["z0z0_rem_xnn_s"], st["z1z1_rem_xnn_s"])
+    rem_s0 = core.modular_reduce(
+        spec,
+        st["ext"],
+        st["z0_inv_s1"],
+        sq_s0,
+        st["xnn_s"][1::2],
+        st["xnn_s_inv"][0::2],
+        st["z0z0_rem_xnn_s"],
+    )
+    rem_s1 = core.extend(spec, ext, rem_s0, S1)
+    z0z0_rem_xnnnn_s = core._interleave(rem_s0, rem_s1)
+    z0_s = core._interleave(torch.zeros_like(z0_s1), z0_s1)
+    z0_rem_xnn_sq_s = step.square(spec, fd.sub(spec, z0_s, xnn_s))
+    hi = step.mul(
+        spec, fd.sub(spec, z0_rem_xnn_sq_s, z0z0_rem_xnnnn_s), xnnnn_s_inv
+    )
+    hi_rem = core.modular_reduce(
+        spec,
+        ext,
+        z0_inv_s1,
+        hi,
+        xnnnn_s[1::2],
+        xnnnn_s_inv[0::2],
+        z0z0_rem_xnnnn_s,
+    )
+    z0z0_rem_xnn_s = fd.add(
+        spec, z0z0_rem_xnnnn_s, step.mul(spec, xnnnn_s, hi_rem)
+    )
+    z1_s = core._interleave(z1_s0, torch.zeros_like(z1_s0))
+    z1z1 = step.square(spec, fd.sub(spec, z1_s, xnn_s))
+    z1z1_rem_xnn_s = core.modular_reduce(
+        spec,
+        ext,
+        z0_inv_s1,
+        z1z1,
+        xnn_s[1::2],
+        xnn_s_inv[0::2],
+        z0z0_rem_xnn_s,
+    )
+    return {
+        "xnn_s": xnn_s,
+        "xnn_s_inv": xnn_s_inv,
+        "z0_s1": z0_s1,
+        "z1_s0": z1_s0,
+        "z0_inv_s1": z0_inv_s1,
+        "z1_inv_s0": z1_inv_s0,
+        "z0z0_rem_xnn_s": z0z0_rem_xnn_s,
+        "z1z1_rem_xnn_s": z1z1_rem_xnn_s,
+    }
+
+
 class FFTree:
     """ECFFT evaluation-domain tables for one field and size ``n``, serving
     every power-of-two size ≤ n, with the eight batch-first algorithms."""
@@ -99,6 +320,124 @@ class FFTree:
         self._pool = None
         self._pool_off = None
         self._scheds: dict = {}
+        # the unscheduled algorithms' tables on the device: ("ext", m) →
+        # the size's EXTEND coefficients, (name, m) → a table
+        self._dev_cache: dict = {}
+
+    # ---------------------------------------------------------- bootstrap
+
+    @classmethod
+    def build(cls, field: str | FieldSpec, n: int,
+              device="cuda") -> "FFTree | None":
+        """F::build_fftree(n) (lib.rs:14-16, 40-84, 199-214) by the device
+        bootstrap, on ``device`` (the card unless the caller names the
+        CPU): None when n exceeds the field's curve two-adicity."""
+        spec = get_spec(field)
+        device = torch.device(device)
+        _require(device)
+        _check_field(spec, device)
+        dom = build_domain(spec, n)
+        if dom is None:
+            return None
+        leaves, maps = dom
+        # host: fill internal domain layers (fftree.rs:56-67), exact ints,
+        # checking the 2-to-1 property map(s_i) == map(s_{i+half}) per node
+        # (the reference's debug_assert, fftree.rs:63-66)
+        f_layers = [leaves]
+        for li, rmap in enumerate(maps):
+            prev = f_layers[-1]
+            half = len(prev) // 2
+            nxt = [rmap(x) for x in prev[:half]]
+            mirror = [rmap(x) for x in prev[half:]]
+            if nxt != mirror:
+                raise TreeConstructionError(
+                    f"rational map {li} is not 2-to-1 on its layer "
+                    "(fftree.rs:65)"
+                )
+            f_layers.append(nxt)
+        return cls.from_domain_layers(spec, f_layers, maps, device)
+
+    @classmethod
+    def from_domain_layers(cls, spec, f_layers, maps,
+                           device="cuda") -> "FFTree":
+        """Device bootstrap in the reference's exact dependency order
+        (fftree.rs:318-463), iterating sizes bottom-up instead of
+        recursing top-down, every product on the kernels of ``device``
+        (``ops.step``); the tables then go to the CPU, where every tree
+        keeps them, and the sizes' EXTEND tables stay in the tree's
+        device cache for the ``*_unscheduled`` forms."""
+        spec = get_spec(spec)
+        device = torch.device(device)
+        _require(device)
+        _check_field(spec, device)
+        n = len(f_layers[0])
+        enc_layers = [fd.encode(spec, layer, device) for layer in f_layers]
+        sizes = [1 << i for i in range(1, _ilog2(n) + 1)]
+        leaves = {m: enc_layers[0][::n // m].contiguous() for m in sizes}
+        # extend matrices (layers with d ≥ 2 only — the 2-wide layer is
+        # identity and never consulted) and the xnn tables: both depend on
+        # the domain alone, so each kind takes one Fermat chain for all
+        # sizes
+        pairs = [(m, li) for m in sizes for li in range(_ilog2(m) - 1)]
+        mats: dict[int, list] = {m: [] for m in sizes}
+        if pairs:
+            recs, dets = zip(*[
+                _build_mats(spec, tuple(maps[li].denominator),
+                            enc_layers[li][::n // m].contiguous())
+                for m, li in pairs])
+            dis = step.inv(spec, torch.cat(dets)).split(
+                [d.shape[0] for d in dets])
+            for (m, _), rec, di in zip(pairs, recs, dis):
+                dec = _dec_mats(spec, rec, di)
+                # moiety selection: dec skip 1/0, rec skip 0/1 for S0/S1
+                # (fftree.rs:87-91,108-112)
+                mats[m].append((dec[1::2], dec[0::2], rec[0::2], rec[1::2]))
+        xnn = _xnn_step(spec, leaves, sizes)
+        tables: dict[int, dict] = {}
+        exts: dict[int, dict] = {}
+        for m in sizes:
+            s = leaves[m]
+            t: dict = {"leaves": s, "mats": mats[m]}
+            exts[m] = _ext_on(spec, mats[m], m, device)
+
+            if m == 2:
+                # base cases (fftree.rs:399-403,454-458)
+                t["xnn_s"], t["xnn_s_inv"] = xnn[2][:2]
+                t["z0_s1"] = fd.sub(spec, s[1:2], s[0:1])
+                t["z1_s0"] = fd.sub(spec, s[0:1], s[1:2])
+                t["z0_inv_s1"], t["z1_inv_s0"] = step.inv(
+                    spec, torch.cat([t["z0_s1"], t["z1_s0"]])).split(1)
+                sq = step.square(spec, s)
+                t["z0z0_rem_xnn_s"] = sq[0:1].expand_as(sq)
+                t["z1z1_rem_xnn_s"] = sq[1:2].expand_as(sq)
+            else:
+                vt_prev = {
+                    k: {"ext": exts[k], "z0_s1": tables[k]["z0_s1"]}
+                    for k in tables
+                }
+                st = {"ext": exts[m // 2]}
+                st.update(
+                    (kk, tables[m // 2][kk])
+                    for kk in ("z0_s1", "z1_s0", "z0_inv_s1", "xnn_s",
+                               "xnn_s_inv", "z0z0_rem_xnn_s",
+                               "z1z1_rem_xnn_s")
+                )
+                t.update(
+                    _z_step(spec, exts[m], s, xnn[m], st, vt_prev,
+                            tables[2]["leaves"])
+                )
+
+            tables[m] = t
+
+        def host(v):
+            return v.to("cpu").contiguous()
+
+        tree = cls(spec, n, {
+            m: {k: ([tuple(host(a) for a in quad) for quad in v]
+                    if k == "mats" else host(v)) for k, v in t.items()}
+            for m, t in tables.items()}, device, f_layers, list(maps))
+        tree._dev_cache.update((("ext", m), e) for m, e in exts.items())
+        return tree
 
     def encode(self, values) -> torch.Tensor:
         """Python ints → (..., L) int32 limbs on the tree's device."""
@@ -136,7 +475,7 @@ class FFTree:
             if pool is None:
                 pool, offsets = build_pool(self.spec, self.tables)
             self._pool_off = offsets
-            self._pool = pool_to_mont(self.spec, pool.to(self.device))
+            self._pool = step.to_resident(self.spec, pool.to(self.device))
 
     def _cache_digest(self) -> str:
         """Short content digest of the tree identity for cache filenames:
@@ -205,8 +544,9 @@ class FFTree:
     def place_on(self, device) -> "FFTree":
         """Move the tree to ``device``: the pool and the schedules'
         residual banks (the tables, which feed only the pool, and the
-        unrolled analysis, host numpy, stay on the CPU); later batches
-        go on that device."""
+        unrolled analysis, host numpy, stay on the CPU; the unscheduled
+        algorithms' device cache is dropped and refilled there at first
+        use); later batches go on that device."""
         device = torch.device(device)
         _check_field(self.spec, device)
         self.device = device
@@ -214,6 +554,7 @@ class FFTree:
             self._pool = self._pool.to(device)
         for entry in self._scheds.values():
             entry[1] = entry[1].to(device)
+        self._dev_cache = {}
         return self
 
     def _schedule(self, alg: str, m: int, moiety: int | None = None):
@@ -342,6 +683,109 @@ class FFTree:
         v = points.shape[-2]
         return self._run_sched("vanish", points, 2 * v, 4 * v, tree=2)
 
+    # ------------------------------------------------ unscheduled forms
+    # The direct level scans of ``ops/core.py``: a second route to every
+    # algorithm, with no schedule, on the kernels of the tree's device.
+
+    def _ext(self, m: int) -> dict:
+        """Pre-scattered flat-scan EXTEND coefficient tables for tree
+        size ``m`` (:func:`_tile_extend` of the compact Lemma-3.2
+        matrices), on the tree's device in the residents' form, made at
+        first use and cached."""
+        key = ("ext", m)
+        if key not in self._dev_cache:
+            self._dev_cache[key] = _ext_on(self.spec, self.tables[m]["mats"],
+                                           m, self.device)
+        return self._dev_cache[key]
+
+    def _table(self, m: int, name: str) -> torch.Tensor:
+        """Table ``name`` of size ``m`` on the tree's device, cached."""
+        key = (name, m)
+        if key not in self._dev_cache:
+            self._dev_cache[key] = self.tables[m][name].to(self.device)
+        return self._dev_cache[key]
+
+    def _subtables(self, key: str, up_to: int) -> dict:
+        return {
+            k: {kk: (self._ext(k) if kk == "ext" else self._table(k, kk))
+                for kk in key.split()}
+            for k in self.tables
+            if k <= up_to
+        }
+
+    def _unscheduled(self, x, size: int) -> None:
+        """Refuse a batch the unscheduled forms cannot take: a size that
+        is not a power of two or exceeds the tree, or limbs of another
+        shape, type or device."""
+        self._size_check(size)
+        self._check_limbs(x, "the batch")
+
+    def _modulus(self, a, m: int):
+        self._check_limbs(a, "a modulus table", "")
+        if tuple(a.shape) != (m, self.spec.num_limbs):
+            raise ValueError(f"a modulus table must be ({m}, "
+                             f"{self.spec.num_limbs}), got {tuple(a.shape)}")
+        return a[0::2].contiguous(), a[1::2].contiguous()
+
+    def extend_unscheduled(self, evals, moiety: int = S1) -> torch.Tensor:
+        m = evals.shape[-2]
+        self._unscheduled(evals, m * 2)
+        return core.extend(self.spec, self._ext(m * 2), evals, moiety)
+
+    def mextend_unscheduled(self, evals, moiety: int = S1) -> torch.Tensor:
+        m = evals.shape[-2]
+        self._unscheduled(evals, m * 2)
+        z = self._table(m * 2, "z0_s1" if moiety == S1 else "z1_s0")
+        return core.mextend(self.spec, self._ext(m * 2), z, evals, moiety)
+
+    def enter_unscheduled(self, coeffs) -> torch.Tensor:
+        n = coeffs.shape[-2]
+        self._unscheduled(coeffs, n)
+        ext = {k: self._ext(k) for k in self.tables if k <= n}
+        xnn = {k: self._table(k, "xnn_s") for k in self.tables if k <= n}
+        return core.enter(self.spec, ext, xnn, coeffs)
+
+    def exit_unscheduled(self, evals) -> torch.Tensor:
+        n = evals.shape[-2]
+        self._unscheduled(evals, n)
+        t = self._subtables(
+            "ext xnn_s xnn_s_inv z0_inv_s1 z0z0_rem_xnn_s", n
+        )
+        return core.exit_(self.spec, t, evals)
+
+    def degree_unscheduled(self, evals) -> torch.Tensor:
+        n = evals.shape[-2]
+        self._unscheduled(evals, n)
+        t = self._subtables("ext z0_inv_s1", n)
+        return core.degree(self.spec, t, evals)
+
+    def _redc_unscheduled(self, evals, a, moiety: int) -> torch.Tensor:
+        """REDC by a modulus table ``a``, its even entries inverted on the
+        device by Fermat (the JAX package's ``_redc_jit``)."""
+        m = evals.shape[-2]
+        self._unscheduled(evals, m)
+        a0, a1 = self._modulus(a, m)
+        z_inv = self._table(m, "z0_inv_s1" if moiety == S0 else "z1_inv_s0")
+        return core.redc(self.spec, self._ext(m), z_inv, evals, a1,
+                         step.inv(self.spec, a0), moiety)
+
+    def modular_reduce_unscheduled(self, evals, a, c) -> torch.Tensor:
+        """MOD by ``a`` given c = ⟨Z₀² mod a ≀ S⟩, a's even entries
+        inverted on the device (the JAX package's ``_mod_jit``)."""
+        m = evals.shape[-2]
+        self._unscheduled(evals, m)
+        a0, a1 = self._modulus(a, m)
+        self._modulus(c, m)
+        return core.modular_reduce(self.spec, self._ext(m),
+                                   self._table(m, "z0_inv_s1"), evals, a1,
+                                   step.inv(self.spec, a0), c)
+
+    def vanish_unscheduled(self, points) -> torch.Tensor:
+        v = points.shape[-2]
+        self._unscheduled(points, v * 2)
+        t = self._subtables("ext z0_s1", v * 2)
+        return core.vanish(self.spec, t, self._table(2, "leaves"), points)
+
 
 def _check_field(spec: FieldSpec, device: torch.device) -> None:
     """Refuse a field the port cannot compute in (a prime below 2^16
@@ -365,6 +809,8 @@ def build_fftree_native(field: str | FieldSpec, n: int,
     return FFTree(spec, n, tables_from_numpy(tables), device, f_layers, maps)
 
 
-# the JAX package's ``build_fftree``: the port has no device bootstrap, so
-# the native engine builds the tables
+# the JAX package's ``build_fftree`` is its device bootstrap; the port's
+# builds through the native engine instead, whose tables are the same bits
+# (the bootstrap is held to them), in a fraction of the time on the CPU,
+# where every test builds its trees. ``FFTree.build`` is the bootstrap.
 build_fftree = build_fftree_native

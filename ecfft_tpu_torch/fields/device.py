@@ -1,7 +1,14 @@
 """Prime-field arithmetic on limb tensors, in plain PyTorch.
 
-The port's counterpart of ``ecfft_tpu/fields/device.py``, cut to what the
-pool build, the step functions' plain versions and the tests need.
+The port's counterpart of ``ecfft_tpu/fields/device.py``: the field ops
+of (..., L) tensors (:func:`add`, :func:`sub`, :func:`neg`, :func:`mul`,
+:func:`square`, :func:`pow_int`, :func:`inv`, :func:`eq`, the fused
+:func:`muladd2` and :func:`mat2_apply`) and the column pipeline that the
+kernels' plain versions run. Everything here is the plain version, for
+CPU tensors: on the card a product goes to the hand-written kernels
+through ``ops.step`` (``step.mul``, ``step.pow_int``, ``step.inv``, ...),
+which pass their product to :func:`pow_int` and :func:`inv`; sums,
+differences and compares stay these PyTorch ops on either device.
 
 Layout: a field element is L limbs of 16 bits (``spec.limb_bits``), the
 same bits as the JAX package's uint32 limbs; M31 (p = 2^31 − 1) packs its
@@ -231,6 +238,13 @@ def _add_canon(spec: FieldSpec, a, b):
     return _cond_sub(spec, x, (0,))
 
 
+def _r2_col(spec: FieldSpec, device):
+    """R² mod p as one (L, 1) int64 column: a Montgomery product by it
+    cancels a Montgomery product's R⁻¹."""
+    return torch.tensor(spec.to_limbs(spec.r2_mod_p), dtype=torch.int64,
+                        device=device)[:, None]
+
+
 def _mont_mul_cols(spec: FieldSpec, a, x):
     """The Montgomery product a·x·R⁻¹ mod p of canonical (..., L, 1|B)
     and (..., L, B) limbs."""
@@ -268,53 +282,120 @@ def mul(spec: FieldSpec, a, b) -> torch.Tensor:
         return _m31_mul(a, b).int()
     a, b = a.unsqueeze(-1), b.unsqueeze(-1)
     if is_mont(spec):
-        r2 = torch.tensor(spec.to_limbs(spec.r2_mod_p), dtype=torch.int64,
-                          device=a.device)[:, None]
-        return _mont_mul_cols(spec, r2, _mont_mul_cols(spec, a, b))[
-            ..., 0].int()
+        return _mont_mul_cols(spec, _r2_col(spec, a.device),
+                              _mont_mul_cols(spec, a, b))[..., 0].int()
     return _reduce_cols(spec, _conv_cols(spec, a, b))[..., 0].int()
+
+
+def _add_cols(spec: FieldSpec, a, b):
+    """a + b mod p of canonical values in the (..., L, B) column layout
+    (the operands broadcast), int64: M31 by one compare, any other field
+    by one carry ripple and one conditional subtract of p (the JAX
+    package's ``_gen_add``)."""
+    if is_m31(spec):
+        return _m31_add(a, b)
+    return _add_canon(spec, a, b)
+
+
+def _sub_cols(spec: FieldSpec, a, b):
+    """a − b mod p of canonical values in the (..., L, B) column layout
+    (the operands broadcast), int64: a − b + p, which lies in [1, 2p),
+    rippled with signed carries, then p subtracted where it fits."""
+    if is_m31(spec):
+        return _m31_sub(a, b)
+    p = torch.tensor(spec.to_limbs(spec.p), dtype=torch.int64,
+                     device=a.device)[:, None]
+    return _cond_sub(spec, _normalize_cols(a.long() - b.long() + p), (0,))
+
+
+def add(spec: FieldSpec, a, b) -> torch.Tensor:
+    """a + b mod p for canonical (..., L) int32 tensors (they broadcast)."""
+    check_fold(spec)
+    return _add_cols(spec, a.unsqueeze(-1), b.unsqueeze(-1))[..., 0].int()
+
+
+def sub(spec: FieldSpec, a, b) -> torch.Tensor:
+    """a − b mod p for canonical (..., L) int32 tensors (they broadcast)."""
+    check_fold(spec)
+    return _sub_cols(spec, a.unsqueeze(-1), b.unsqueeze(-1))[..., 0].int()
 
 
 def neg(spec: FieldSpec, a) -> torch.Tensor:
     """−a mod p for (..., L) int32 tensors (zero stays zero)."""
+    return sub(spec, torch.zeros_like(a), a)
+
+
+def eq(spec: FieldSpec, a, b) -> torch.Tensor:
+    """Elementwise equality, reduced over the limb axis."""
+    return (a == b).all(dim=-1)
+
+
+def square(spec: FieldSpec, a) -> torch.Tensor:
+    """a² (:func:`mul`)."""
+    return mul(spec, a, a)
+
+
+def pow_int(spec: FieldSpec, a, e: int, product=None) -> torch.Tensor:
+    """a^e for a host-known exponent by ``product`` (default :func:`mul`,
+    the plain int64 product; ``ops.step`` passes the kernels'): binary
+    square-and-multiply for an exponent of up to 16 bits, as the JAX
+    package unrolls it; a longer one (Fermat's p − 2) in 4-bit windows
+    from the top, a^1 … a^15 first, which takes about a third fewer
+    products. Every product is exact, so the order does not change a
+    bit of the result."""
+    product = product or mul
+    if e == 0:
+        return ones(spec, a.shape[:-1], a.device).contiguous()
+    if e.bit_length() <= 16:
+        res, acc = None, a
+        while True:
+            if e & 1:
+                res = acc if res is None else product(spec, res, acc)
+            e >>= 1
+            if not e:
+                return res
+            acc = product(spec, acc, acc)
+    table = [None, a]
+    for _ in range(14):
+        table.append(product(spec, table[-1], a))
+    digits = [(e >> s) & 15 for s in range(0, e.bit_length(), 4)][::-1]
+    res = table[digits[0]]
+    for dgt in digits[1:]:
+        for _ in range(4):
+            res = product(spec, res, res)
+        if dgt:
+            res = product(spec, res, table[dgt])
+    return res
+
+
+def inv(spec: FieldSpec, a, power=None) -> torch.Tensor:
+    """Elementwise inverse by Fermat, a^(p−2), for every field, zero mapped
+    to zero (the JAX package's ``inv``); ``power`` (default
+    :func:`pow_int`) raises to the power."""
+    check_fold(spec)
+    r = (power or pow_int)(spec, a, spec.p - 2)
+    zero = (a == 0).all(dim=-1, keepdim=True)
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
+def muladd2(spec: FieldSpec, a1, x1, a2, x2) -> torch.Tensor:
+    """a1·x1 + a2·x2 of canonical (..., L) int32 tensors, canonical: the
+    two products' columns summed before one reduction (a Montgomery one
+    and a product by R² mod p for a prime without a fold), as the JAX
+    package's fused ``muladd2``."""
     check_fold(spec)
     if is_m31(spec):
-        return _m31_sub(torch.zeros_like(a), a).int()
-    p = torch.tensor(spec.to_limbs(spec.p), dtype=torch.int64,
-                     device=a.device)
-    d = p - a.long()  # limbwise; a signed ripple restores 16-bit limbs
-    out = []
-    borrow = torch.zeros_like(d[..., 0])
-    for k in range(spec.num_limbs):
-        v = d[..., k] + borrow
-        out.append(v & LIMB_MASK)
-        borrow = v >> 16
-    out = torch.stack(out, dim=-1)
-    zero = (a == 0).all(dim=-1, keepdim=True)
-    return torch.where(zero, torch.zeros_like(out), out).int()
+        return _m31_add(_m31_mul(a1, x1), _m31_mul(a2, x2)).int()
+    a1, x1, a2, x2 = (t.unsqueeze(-1) for t in (a1, x1, a2, x2))
+    c = _conv_cols(spec, a1, x1) + _conv_cols(spec, a2, x2)
+    if is_mont(spec):
+        return _mont_mul_cols(spec, _r2_col(spec, c.device),
+                              _mont_reduce_cols(spec, c))[..., 0].int()
+    return _reduce_cols(spec, c)[..., 0].int()
 
 
-def _small_pow(a, e: int, p: int):
-    """a^e mod p elementwise for a one-limb prime (M31 or p < 2^16) on
-    int64 tensors: every product is below 2^62, every remainder exact."""
-    a = a.long()
-    r = torch.ones_like(a)
-    while e:
-        if e & 1:
-            r = r * a % p
-        a = a * a % p
-        e >>= 1
-    return r
-
-
-def inv(spec: FieldSpec, a) -> torch.Tensor:
-    """Elementwise inverse of one-limb (..., 1) int32 values by Fermat,
-    a^(p−2): M31, or a prime below 2^16 (zero maps to zero, as in the JAX
-    package's ``inv``). The fields of 2 limbs or more invert through the
-    native engine (``native.batch_inv_limbs``)."""
-    check_fold(spec)
-    if spec.num_limbs != 1:
-        raise NotImplementedError(
-            f"{spec.name}: inv takes one-limb fields; invert 16-bit limbs "
-            "with native.batch_inv_limbs")
-    return _small_pow(a, spec.p - 2, spec.p).int()
+def mat2_apply(spec: FieldSpec, m, v0, v1):
+    """The 2×2 matrix–vector product over the field: ``m`` (..., 2, 2, L),
+    ``v0``/``v1`` (..., L) → (m00·v0 + m01·v1, m10·v0 + m11·v1)."""
+    return (muladd2(spec, m[..., 0, 0, :], v0, m[..., 0, 1, :], v1),
+            muladd2(spec, m[..., 1, 0, :], v0, m[..., 1, 1, :], v1))

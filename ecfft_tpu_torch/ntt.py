@@ -35,8 +35,8 @@ import torch
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec, spec_for_prime
 from ecfft_tpu_torch.ops import emit, step
-from ecfft_tpu_torch.ops.schedule import (pool_to_mont, run_schedule,
-                                          schedule_entry, with_analysis)
+from ecfft_tpu_torch.ops.schedule import (run_schedule, schedule_entry,
+                                          with_analysis)
 
 # the reference comparison's 2-adic prime (benches/comparison.rs:19-23)
 STARK_P = int(
@@ -84,8 +84,8 @@ class NTTPlan:
             iacc = iacc * w_inv % p
         rows = ([0, 1] + pows + ipows + [n_inv]
                 + [(-v) % p for v in pows] + [(-v) % p for v in ipows])
-        self.pool = pool_to_mont(self.spec,
-                                 fd.encode(self.spec, rows, self.device))
+        self.pool = step.to_resident(
+            self.spec, fd.encode(self.spec, rows, self.device))
         self._off_w = 2
         self._off_iw = 2 + n // 2
         self._off_ninv = 2 + n

@@ -408,16 +408,6 @@ def unrolled_selected() -> bool:
     return os.environ.get("ECFFT_EXECUTOR") == "unrolled"
 
 
-def pool_to_mont(spec: FieldSpec, pool):
-    """A canonical pool in its residents' form: with Montgomery residents
-    one row product by R² mod p per row (a kernel launch on the card), as
-    the JAX package converts it (``_pool_to_mont``); else ``pool``."""
-    if not fd.is_mont(spec):
-        return pool
-    r2 = fd.encode(spec, spec.r2_mod_p, pool.device)
-    return step.mul_rows(spec, r2.expand_as(pool), pool)
-
-
 def schedule_entry(sched: Schedule, device) -> list:
     """[schedule, residual bank as int64 on ``device``, None]: a schedule
     as trees and plans keep it; :func:`with_analysis` fills the last slot."""

@@ -395,3 +395,124 @@ def mul_rows(spec: FieldSpec, a, b):
                       device=a.device)
     aff1s_ip(spec, a.contiguous(), out, b.contiguous().unsqueeze(-1), 0)
     return out.squeeze(-1)
+
+
+# ------------------------------------- field products on the kernels
+#
+# The products of the unscheduled algorithms (``ops/core.py``) and the
+# device bootstrap (``fftree.py``): each is a launch of the kernels above
+# on a CUDA tensor, and their plain version on a CPU one, so both devices
+# run one path. The kernels of a "cios" form return a·b·R⁻¹; here every
+# value stays canonical: a table that multiplies a window is carried in
+# the residents' form (:func:`to_resident`, t·R mod p), so the muladd pair
+# returns x1 + C·x2 and A·x1 + B·x2 themselves, and a product of two
+# computed values takes a second launch by R² mod p (:func:`mul_windows`).
+
+
+def const_rows(spec: FieldSpec, value: int, rows: int, device):
+    """``rows`` coefficient rows of one constant, (rows, L) int32."""
+    return fd.encode(spec, value, device).expand(
+        rows, spec.num_limbs).contiguous()
+
+
+def to_resident(spec: FieldSpec, rows):
+    """(N, L) canonical rows in the residents' form: with Montgomery
+    residents rows·R mod p, by one self-read product by R² mod p a row (a
+    launch on the card; the JAX package's ``_pool_to_mont``), else
+    ``rows``. A product by such rows leaves the other factor's form."""
+    if not fd.is_mont(spec):
+        return rows
+    return mul_rows(spec, const_rows(spec, spec.r2_mod_p, rows.shape[0],
+                                     rows.device), rows)
+
+
+def mul_window(spec: FieldSpec, c, x, add=None):
+    """add + c[q]·x[q] for (A, L) coefficient rows ``c`` in the residents'
+    form and an (A, L, B) window ``x``, into a new window; ``add`` an
+    (A, L, B) window or None (zero). One muladd1 launch."""
+    out = torch.zeros_like(x) if add is None else torch.empty_like(x)
+    muladd1(spec, c, out if add is None else add, x, out, 0)
+    return out
+
+
+def mul2_window(spec: FieldSpec, a, b, x1, x2):
+    """a[q]·x1[q] + b[q]·x2[q] for (A, L) coefficient rows in the
+    residents' form and (A, L, B) windows, into a new window. One muladd2
+    launch."""
+    out = torch.empty_like(x1)
+    muladd2(spec, a, b, x1, x2, out, 0)
+    return out
+
+
+def mul_windows(spec: FieldSpec, x1, x2):
+    """x1·x2 of two canonical (A, L, B) windows, canonical, into a new
+    window: one mulss launch, and with Montgomery residents one muladd1 by
+    R² mod p rows to cancel its R⁻¹. The factors may be one buffer."""
+    out = torch.empty_like(x1)
+    mulss(spec, x1, x2, out, 0)
+    if fd.is_mont(spec):
+        out = mul_window(spec, const_rows(spec, spec.r2_mod_p,
+                                          out.shape[0], out.device), out)
+    return out
+
+
+def _as_window(spec: FieldSpec, t):
+    """A (..., L) tensor as an (N, L, 1) contiguous window."""
+    return t.reshape(-1, spec.num_limbs, 1).contiguous()
+
+
+def mul(spec: FieldSpec, a, b):
+    """The canonical product of canonical (..., L) int32 tensors (they
+    broadcast) on the kernels: one-lane windows through
+    :func:`mul_windows`."""
+    a, b = torch.broadcast_tensors(a, b)
+    return mul_windows(spec, _as_window(spec, a),
+                       _as_window(spec, b)).reshape(a.shape)
+
+
+def square(spec: FieldSpec, a):
+    """a² on the kernels (mulss with one buffer as both factors)."""
+    w = _as_window(spec, a)
+    return mul_windows(spec, w, w).reshape(a.shape)
+
+
+def _mont_product(spec: FieldSpec, a, b):
+    """a·b·R⁻¹ of (..., L) tensors in Montgomery form: one mulss launch."""
+    out = torch.empty_like(_as_window(spec, a))
+    mulss(spec, _as_window(spec, a), _as_window(spec, b), out, 0)
+    return out.reshape(a.shape)
+
+
+def pow_int(spec: FieldSpec, a, e: int):
+    """a^e on the kernels (``fields.device.pow_int``'s square-and-multiply).
+    With Montgomery residents the chain runs in Montgomery form, one mulss
+    a product, between a conversion in and one out."""
+    if not fd.is_mont(spec) or e == 0:
+        return fd.pow_int(spec, a, e, product=mul)
+    rows = a.reshape(-1, spec.num_limbs).contiguous()
+    r = fd.pow_int(spec, to_resident(spec, rows), e, product=_mont_product)
+    return mul_rows(spec, const_rows(spec, 1, r.shape[0], r.device),
+                    r).reshape(a.shape)
+
+
+def inv(spec: FieldSpec, a):
+    """a^(p−2) on the kernels, zero mapped to zero."""
+    return fd.inv(spec, a, power=pow_int)
+
+
+def fused_muladd2(spec: FieldSpec, a1, x1, a2, x2):
+    """a1·x1 + a2·x2 of canonical (..., L) tensors of one shape on the
+    muladd2 kernel (the JAX package's fused ``muladd2``): a1 and a2 as
+    coefficient rows, x1 and x2 as one-lane windows."""
+    shape = x1.shape
+    rows = [to_resident(spec, t.reshape(-1, spec.num_limbs).contiguous())
+            for t in (a1, a2)]
+    return mul2_window(spec, rows[0], rows[1], _as_window(spec, x1),
+                       _as_window(spec, x2)).reshape(shape)
+
+
+def mat2_apply(spec: FieldSpec, m, v0, v1):
+    """The 2×2 matrix–vector product of ``fields.device.mat2_apply`` on
+    the muladd2 kernel: two launches."""
+    return (fused_muladd2(spec, m[..., 0, 0, :], v0, m[..., 0, 1, :], v1),
+            fused_muladd2(spec, m[..., 1, 0, :], v0, m[..., 1, 1, :], v1))

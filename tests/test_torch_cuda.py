@@ -9,7 +9,11 @@ its algorithms on the card against the CPU's; the warp cascade
 words likewise, at ragged lane counts, a tile of 8 rows and 16 levels;
 the one-limb fold form ("fold1", p = 97 and 64513) likewise; the NTT on
 the card against the CPU and naive evaluation; a tree moved to the card
-by ``place_on`` and one read from a cache directory.
+by ``place_on`` and one read from a cache directory; the device bootstrap
+(``FFTree.build``) on the card against the CPU's, each ``*_unscheduled``
+algorithm likewise with kernel launches, sharding over two shards of the
+card, and M31's unscheduled ENTER at a size whose blocks, folded into the
+lanes, would pass the M31 kernels' grid.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -32,6 +36,9 @@ from ecfft_tpu_torch.ops import _build, schedule, step, unrolled
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_general_fields import CURVES, FORMS, register  # noqa: E402
+from torch_unscheduled_cases import CASES as UCASES  # noqa: E402
+from torch_unscheduled_cases import inputs as unscheduled_inputs  # noqa: E402
+from torch_unscheduled_cases import port_tree  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -696,3 +703,98 @@ def test_cached_and_deserialized_trees_on_card(card, tmp_path):
         assert serialize_fftree(t2, compress=compress) == data
         assert torch.equal(t2.enter(x), want)
 
+
+
+# ---------------- the device bootstrap, the unscheduled forms, sharding
+
+
+def _launched():
+    return {w.__name__: sum(w.launches.values()) for w in step.STEP_WRAPPERS}
+
+
+@pytest.mark.parametrize("field,n", [("secp256k1", 32), ("m31", 256),
+                                     ("gp_stark", 16)])
+def test_bootstrap_on_card_matches_cpu(card, field, n):
+    """``FFTree.build`` on the card: every table and mats plane equal to
+    the CPU bootstrap's (held to the native engine there), its products
+    launches of mulss, muladd1 and muladd2."""
+    from ecfft_tpu_torch import FFTree
+
+    register()
+    before = _launched()
+    got = FFTree.build(field, n, device=card)
+    torch.cuda.synchronize()
+    after = _launched()
+    assert all(after[k] > before[k] for k in ("mulss", "muladd1",
+                                               "muladd2"))
+    want = FFTree.build(field, n, device="cpu")
+    for m, t in want.tables.items():
+        for name, v in t.items():
+            if name == "mats":
+                for gq, wq in zip(got.tables[m][name], v):
+                    assert all(torch.equal(g, w) for g, w in zip(gq, wq))
+            else:
+                assert torch.equal(got.tables[m][name], v), (m, name)
+    assert got.device == card
+    assert got._dev_cache and all(
+        e["s0"][0].device == card for k, e in got._dev_cache.items()
+        if k[0] == "ext" and e["s0"][0].numel())
+
+
+@pytest.mark.parametrize("case", list(UCASES))
+@pytest.mark.parametrize("field", ["secp256k1", "m31", "gp_stark"])
+def test_unscheduled_on_card_match_cpu(card, field, case):
+    """Each ``*_unscheduled`` algorithm on the card (the fold form, M31
+    and a CIOS form) equal to the CPU's, with kernel launches."""
+    register()
+    n = 16 if field == "gp_stark" else 64
+    x, a, c = unscheduled_inputs(port_tree(field, n), case, 3, 12)
+    call = UCASES[case][0]
+    want = call(port_tree(field, n), *(torch.from_numpy(v.astype("int32"))
+                                       for v in (x, a, c)))
+    before = _launched()
+    got = call(port_tree(field, n, card),
+               *(torch.from_numpy(v.astype("int32")).to(card)
+                 for v in (x, a, c)))
+    torch.cuda.synchronize()
+    assert sum(_launched().values()) > sum(before.values())
+    assert got.device == card and torch.equal(got.cpu(), want)
+
+
+def test_sharding_on_card_matches_unsharded(card):
+    """A ShardedFFTree over two shards of one card: every algorithm (REDC
+    and MOD also by tables) equal to the unsharded tree's, each shard on
+    the card."""
+    from ecfft_tpu_torch.parallel.sharding import ShardedFFTree, make_mesh
+    from test_torch_sharding import ALGORITHMS
+
+    n, batch = 32, 4
+    tree = build_fftree_native("m31", n, device=card).prepare()
+    stree = ShardedFFTree(tree, make_mesh(["cuda:0", "cuda:0"])).prepare()
+    gen = torch.Generator().manual_seed(9)
+    for alg, (call, points) in ALGORITHMS.items():
+        x, a, c = (torch.randint(1, FIELDS["m31"].p, shape,
+                                 generator=gen, dtype=torch.int32).to(card)
+                   for shape in ((batch, points, 1), (n, 1), (n, 1)))
+        got = call(stree, x, a, c)
+        assert [o.device for o in got] == stree.mesh, alg
+        assert torch.equal(torch.cat(got), call(tree, x, a, c)), alg
+
+
+def test_m31_enter_unscheduled_past_the_folded_grid(card):
+    """M31 ENTER unscheduled at n = 2^16, B = 512: with the blocks folded
+    into the lanes its first level would launch 2^24 lanes, past the
+    65,535 blocks of grid y of ``csrc/m31_kernels.cu``; the blocks lie on
+    the rows instead. Lanes 0 and B − 1 against the native engine, the
+    whole batch against EXIT's round trip."""
+    n, batch = 1 << 16, 512
+    tree = build_fftree_native("m31", n, device=card)
+    gen = torch.Generator(device=card).manual_seed(13)
+    x = torch.randint(0, FIELDS["m31"].p, (batch, n, 1), generator=gen,
+                      device=card, dtype=torch.int32)
+    evals = tree.enter_unscheduled(x)
+    nt = NativeFFTree("m31", n)
+    for b in (0, batch - 1):
+        assert [int(v) for v in fd.decode(FIELDS["m31"], evals[b])] == \
+            nt.enter([int(v) for v in fd.decode(FIELDS["m31"], x[b])])
+    assert torch.equal(tree.exit_unscheduled(evals), x)

@@ -193,3 +193,23 @@ def test_native_tables_match():
             for g, r in zip(got, ref):
                 assert g.dtype == np.uint32
                 np.testing.assert_array_equal(g, np.asarray(r))
+
+
+def test_tile_extend_has_its_originals_source_and_tables():
+    """``fftree._tile_extend``, the EXTEND tables of the unscheduled forms
+    and the bootstrap: its original's source, and the same tables from
+    one tree's matrices."""
+    from ecfft_tpu import fftree as jft
+    from ecfft_tpu_torch import fftree as tft
+
+    assert _source(tft._tile_extend) == _source(jft._tile_extend)
+    tree = tft.build_fftree_native("secp256k1", 16, device="cpu")
+    for m in (2, 8, 16):
+        got = tft._tile_extend(tree.spec, tree.tables[m]["mats"], m)
+        want = jft._tile_extend(jreg.FIELDS["secp256k1"], [
+            tuple(q.numpy().astype(np.uint32) for q in quad)
+            for quad in tree.tables[m]["mats"]], m)
+        np.testing.assert_array_equal(got["shifts"], want["shifts"])
+        for k in ("s0", "s1"):
+            for g, w in zip(got[k], want[k]):
+                np.testing.assert_array_equal(g.astype(np.uint32), w)
