@@ -13,7 +13,8 @@ stops the run with a non-zero exit:
    and "cios13", and the one-limb fold form "fold1" of phases 4d, 11 and
    12), one ``nvcc`` each, all started together, and the native
    engine; then the instructions one thread of each kernel of each form
-   issues, per pipe, read from its SASS (``tools/sass_count.py``; for the
+   issues, per pipe, read from its SASS (``tools/sass_count.py``, with
+   the fold rounds this run's values take in that form's field; for the
    operation bounds), and each kernel's registers, shared bytes and
    spills;
 3. set-up: a native-built secp256k1 tree at n = 2^16, its pool, the
@@ -39,8 +40,9 @@ stops the run with a non-zero exit:
    the largest below 2^(16L − 1); seeded random ones), each timed at its
    field's phase-10 shape: "cios16" with the STARK prime's constants at
    the full width (and the 256-bit prime of slack 0 at the small shapes),
-   "fold4" (M61), "band16" (2^256 − 1053 on the "fold16" form), "cios3"
-   and "cios13"; then (4d) the one-limb fold form "fold1" likewise, for
+   "fold4" (M61), and at n = 2^10 "band16" (2^256 − 1053 on the "fold16"
+   form), "cios3" and "cios13", whose launches' device times come from a
+   ``torch.profiler`` trace as in 4d; then (4d) the one-limb fold form "fold1" likewise, for
    64513 (F = 1023, slack 0) with the edge values of 4c and the largest
    value below 2^16, timed at the window of phase 11's 64513 NTT (A =
    2^10, B = 256; each launch's device time from a ``torch.profiler``
@@ -123,11 +125,26 @@ stops the run with a non-zero exit:
    that must exit 0: ``python -m ecfft_tpu_torch.bench_suite --field m31
    --n 2048 --batch 256`` and ``--comparison --batch 128``, their tables
    printed;
-14. a JSON line of the kernels (the nine 16-limb forms, whose launches are
+14. the host-side modules: (a) the host oracle (``host.fftree``, python
+   ints), a third witness beside the native engine and the other
+   executor: a spawned process, started after phase 6b with phase 6a's
+   lane 0, builds its secp256k1 tree at n = 2^16 and ENTERs that lane
+   while phases 7–13 run; its evaluations must equal the scan executor's
+   ENTER of the lane on the card; (b) two seeded lanes of M31
+   coefficients at n = 4096, evaluated by the host oracle, EXITed on the
+   card on both executors back to the coefficients; (c) the binary-field
+   tree, GF(2^9) at n = 16 (host only): ENTER against naive evaluation
+   and the EXIT round trip; (d) Schoof through the native engine: the
+   order of y² = x³ + 8x + 81 over M31 (2147489041), and over 2^61 − 1
+   within Hasse's bound with N·P = O on two points; (e) the examples as
+   users run them, each in a process of its own that must exit 0:
+   ``python -m ecfft_tpu_torch.examples.interp_eval`` (n = 2^10, batch 8,
+   on the card), ``find_curve 10`` and ``schoof_large 61``;
+15. a JSON line of the kernels (the nine 16-limb forms, whose launches are
    phases 6–8's, the nine M31 forms, phase 9's, the nine of each general
    form, phase 10's (and phase 11's STARK NTT for "cios16"), and the nine
    "fold1" forms, phases 11's and 12's, each with its form's launches of
-   phase 8d added; 72 in all, named
+   phase 8d added, and the M31 forms' with 14b's; 72 in all, named
    ``"aff1s_ip[cios16]"`` and so on), the ``nvidia-smi`` line, and last
    the result line ``{"ok": true, "device": {...}}``.
 """
@@ -135,6 +152,8 @@ stops the run with a non-zero exit:
 import collections
 import ctypes
 import json
+import math
+import multiprocessing
 import os
 import random
 import shutil
@@ -143,18 +162,25 @@ import sys
 import time
 import types
 
+import numpy as np
 import torch
 
 from ecfft_tpu_torch import FFTree, build_fftree_native
+from ecfft_tpu_torch.ec.curve import Point, ShortWeierstrass
+from ecfft_tpu_torch.fields.binary import GF512
 from ecfft_tpu_torch.fields import device as fd
+from ecfft_tpu_torch.fields.host import sqrt_mod
 from ecfft_tpu_torch.fields.registry import (FIELDS, register_field,
                                              spec_for_prime)
+from ecfft_tpu_torch.host.fftree import (_evaluate, build_host_fftree,
+                                         build_host_fftree_even)
 from ecfft_tpu_torch import native
 from ecfft_tpu_torch.native import NativeFFTree, native_library
 from ecfft_tpu_torch.ntt import STARK_GENERATOR, STARK_P, NTTPlan
 from ecfft_tpu_torch.ops import _build, emit, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
 from ecfft_tpu_torch.parallel.sharding import ShardedFFTree, make_mesh
+from ecfft_tpu_torch.schoof import cardinality_native
 from ecfft_tpu_torch.serialize import deserialize_fftree, serialize_fftree
 from ecfft_tpu_torch.serialize_native import load_tables_npz, save_tables_npz
 from ecfft_tpu_torch.utils.poly import evaluate
@@ -249,6 +275,15 @@ NTT_PATHS = (("stark", STARK_P, STARK_GENERATOR, 1 << 16, 256),
 # n = 64 reaches every fused kernel
 FOLD1_N, FOLD1_BATCH, FOLD1_TW = 64, 256, 8
 FOLD1_EDGE_N = 1 << 10  # phase 4d's main shapes: the 64513 NTT's window
+# phase 14, the host-side modules: the host oracle's child process (about
+# two minutes of python ints at n = 2^16) and how long phase 14 waits for
+# it at most; 14b's M31 EXIT at n = 4096 (the JAX package's
+# tests/test_sched_chunk.py certifies its own there); 14d's curve
+# y² = x³ + 8x + 81 and its order over M31; 14e's k for find_curve
+HOST_TIMEOUT_S = 600
+HOST_M31_N = 4096
+SCHOOF_CURVE, SCHOOF_M31_ORDER = (8, 81), 2147489041
+FIND_CURVE_K = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
 # sm_90, per SM and clock (the CUDA C++ Programming Guide's throughput
 # table, compute capability 9.0): 64 results of "32-bit integer multiply,
@@ -257,10 +292,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (the data sheet)
 # 64 lanes on the FMA pipe, 64 of integer add, logic, shift and compare
 # on the ALU pipe beside it, and 4 warp instructions (128 lanes) issued
 WORD_PRODUCTS_PER_SM, PIPE_LANES_PER_SM, ISSUE_LANES_PER_SM = 64, 64, 128
-# the reduction's fold loop runs twice per product of two canonical
-# values: after one round the high part is below 2^35, after two it is 0
-# unless the low half lies within 2^68 of 2^256 (one element in 2^188)
-FOLD_ROUNDS = 2
 # warm-up before a kernel is timed: right after a plain run at the main
 # shape (tens of GB of int64 temporaries freed) the next launches run up
 # to 8% slower for a few tens of ms (tools/ab_step_kernels.py)
@@ -498,13 +529,36 @@ def fold_nonzero(spec=SPEC) -> int:
     return sum(1 for v in step._field(spec).fw if v)
 
 
+def fold_rounds(spec=SPEC) -> int:
+    """Rounds of the fold loop (``csrc/word_arith.cuh::reduce``) that most
+    of this run's values take: x + c·y over seeded uniform canonical
+    values, folded as the loop folds them while the part above R =
+    2^(16L) is not 0: two for the primes of 16 limbs (after one round the
+    high part of a 16-limb product is below 2^35, after two it is 0 unless
+    the low half lies within 2^68 of 2^256), one for M61 (two for about
+    one value in 50), three for 64513 (2 to 4 for one value in five; up
+    to five at most), 0 for 97 (x + c·y < 2^16), and 0 for the forms
+    without a fold loop (CIOS, M31)."""
+    if fd.is_m31(spec) or fd.is_mont(spec):
+        return 0
+    p, R = spec.p, 1 << (16 * spec.num_limbs)
+    F, rng = R % p, random.Random(5)
+    rounds = collections.Counter()
+    for _ in range(1000):
+        v, r = rng.randrange(p) + rng.randrange(p) * rng.randrange(p), 0
+        while v >= R:
+            v, r = v % R + (v // R) * F, r + 1
+        rounds[r] += 1
+    return rounds.most_common(1)[0][0]
+
+
 def thread_work(kind, A, B, kinds=(), spec=SPEC):
     """(threads, instructions one thread issues per pipe) of one call
     on a window of A rows and B lanes, along the path this data takes
-    (``tools/sass_count.py``: FOLD_ROUNDS rounds of the fold, one block
-    per nonzero word of F in each)."""
+    (``tools/sass_count.py``: :func:`fold_rounds` rounds of the fold, one
+    block per nonzero word of F in each)."""
     m31, form = fd.is_m31(spec), step.kernel_form(spec)
-    per = sass_count.thread_counts(SASS[form][kind], FOLD_ROUNDS,
+    per = sass_count.thread_counts(SASS[form][kind], fold_rounds(spec),
                                    fold_nonzero(spec), kinds,
                                    max(words(spec), 1))
     # one thread an element (an M31 pair level: a pair; the warp design's
@@ -1760,20 +1814,158 @@ def sharded_by_tables(tree, stree, gen, batch):
             "the unsharded output, each shard on its device")
 
 
-def bench_suite(args) -> None:
-    """``python -m ecfft_tpu_torch.bench_suite`` with ``args`` in a
-    process of its own; it must exit 0. Prints its table."""
+def run_module(module, args) -> None:
+    """``python -m ecfft_tpu_torch.<module>`` with ``args`` in a process
+    of its own, as a user runs it; it must exit 0. Prints its output."""
     env = {k: v for k, v in os.environ.items() if k != "ECFFT_EXECUTOR"}
     t0 = time.perf_counter()
     res = subprocess.run(
-        [sys.executable, "-m", "ecfft_tpu_torch.bench_suite", *args],
+        [sys.executable, "-m", f"ecfft_tpu_torch.{module}", *args],
         capture_output=True, text=True, timeout=400, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
-    log(f"bench_suite {' '.join(args)}: exit {res.returncode} in "
+    log(f"{module} {' '.join(args)}: exit {res.returncode} in "
         f"{time.perf_counter() - t0:.3f} s")
     log(res.stderr.strip())
     log(res.stdout.strip())
-    check(res.returncode == 0, f"bench_suite {args} failed")
+    check(res.returncode == 0, f"{module} {args} failed")
+
+
+# ------------------------------------------------ the host-side modules
+
+
+def host_enter(field, n, coeffs, conn) -> None:
+    """Phase 14a's child process: the host oracle's tree of size ``n``
+    over ``field`` and its ENTER of ``coeffs`` (python ints), sent back as
+    ("ok", the evaluations, build s, ENTER s) or ("error", what)."""
+    try:
+        t0 = time.perf_counter()
+        ht = build_host_fftree(field, n)
+        t1 = time.perf_counter()
+        out = ht.enter(coeffs)
+        conn.send(("ok", out, t1 - t0, time.perf_counter() - t1))
+    except Exception as e:  # the parent fails the run on it
+        conn.send(("error", repr(e)))
+    finally:
+        conn.close()
+
+
+def start_host_enter(coeffs):
+    """:func:`host_enter` of ``coeffs`` at the main width in a spawned
+    process, which overlaps phases 7–13 on another core. Returns (the
+    process, the pipe its answer comes on). The process is daemonic:
+    whatever way this run ends, ``multiprocessing`` stops it on exit."""
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=host_enter, args=(FIELD, N, coeffs, send),
+                       daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def host_side(child, want) -> collections.Counter:
+    """Phase 14: the host oracle as a third witness of the card's ENTER at
+    the main width (``want``: phase 6a's lane 0) and of M31's EXIT at
+    n = 4096 on both executors, the binary-field tree, Schoof's counts and
+    the examples as users run them. Returns the M31 launches of 14b."""
+    proc, recv = child
+    with Phase(f"14a the host oracle's ENTER of phase 6a's lane 0 (n = {N}, "
+               f"{FIELD}) against the card's"):
+        t0 = time.perf_counter()
+        try:
+            msg = recv.recv() if recv.poll(HOST_TIMEOUT_S) else None
+        except EOFError:
+            msg = None
+        log(f"waited {time.perf_counter() - t0:.3f} s for the child")
+        proc.join(30)
+        what = ("no answer" if msg is None else msg[1]
+                if msg[0] == "error" else "its exit code")
+        check(msg is not None and msg[0] == "ok" and proc.exitcode == 0,
+              f"the host oracle's child failed (exit {proc.exitcode}): "
+              f"{what}")
+        _, got, build_s, enter_s = msg
+        first = next((i for i, (g, w) in enumerate(zip(got, want))
+                      if g != w), None)
+        check(len(got) == len(want) and first is None,
+              f"the host oracle's ENTER differs from the card's (first at "
+              f"{first})")
+        log(f"host oracle (python ints, a process of its own): tree "
+            f"{build_s:.3f} s, ENTER {enter_s:.3f} s; its {len(got)} "
+            "evaluations equal the scan executor's ENTER of lane 0")
+
+    counts = collections.Counter()
+    with Phase(f"14b M31 EXIT at n = {HOST_M31_N} of the host oracle's "
+               "evaluations, both executors"):
+        t0 = time.perf_counter()
+        ht = build_host_fftree("m31", HOST_M31_N)
+        rng = np.random.RandomState(5)
+        coeffs = [[int(v) for v in row] for row in
+                  rng.randint(0, M31.p, size=(2, HOST_M31_N))]
+        evals = [ht.enter(c) for c in coeffs]
+        log(f"host oracle: tree and two ENTERs {time.perf_counter() - t0:.3f}"
+            " s")
+        tree = build_fftree_native("m31", HOST_M31_N, device=DEV).prepare()
+        x = tree.encode(evals)
+        for ex in ("scan", "unrolled"):
+            if ex == "unrolled":
+                os.environ["ECFFT_EXECUTOR"] = "unrolled"
+            try:
+                torch.cuda.synchronize()
+                reset_counts()
+                out = tree.exit(x)
+                torch.cuda.synchronize()
+                got = read_counts(M31)
+            finally:
+                os.environ.pop("ECFFT_EXECUTOR", None)
+            check([[int(v) for v in row] for row in tree.decode(out)]
+                  == coeffs, f"{ex} M31 EXIT of the host oracle's "
+                             "evaluations does not give the coefficients")
+            check(any(got.values()), f"{ex} M31 EXIT launched no kernel")
+            log(f"{ex}: EXIT == the coefficients on both lanes; launches "
+                f"{got}")
+            counts.update(got)
+        del tree, x, out
+
+    with Phase("14c the binary-field tree: GF(2^9) at n = 16 (host)"):
+        bt = build_host_fftree_even(GF512, 16)
+        check(bt is not None, "no GF(2^9) tree at n = 16")
+        rng = random.Random(3)
+        cs = [rng.randrange(GF512.order) for _ in range(16)]
+        ev = bt.enter(cs)
+        check(ev == [_evaluate(GF512, cs, x) for x in bt.eval_domain()],
+              "the GF(2^9) ENTER differs from naive evaluation")
+        check(bt.exit(ev) == cs, "the GF(2^9) EXIT does not round-trip")
+        log("GF(2^9), n = 16: ENTER == naive evaluation, EXIT round-trips")
+
+    with Phase("14d Schoof through the native engine: M31 and 2^61 - 1"):
+        a, b = SCHOOF_CURVE
+        t0 = time.perf_counter()
+        n31 = cardinality_native(ShortWeierstrass(a, b, M31.p))
+        log(f"#E(M31) = {n31} in {time.perf_counter() - t0:.3f} s")
+        check(n31 == SCHOOF_M31_ORDER, f"#E(M31) = {n31}, not "
+                                       f"{SCHOOF_M31_ORDER}")
+        p = (1 << 61) - 1
+        curve = ShortWeierstrass(a, b, p)
+        t0 = time.perf_counter()
+        n61 = cardinality_native(curve)
+        log(f"#E(2^61 - 1) = {n61} in {time.perf_counter() - t0:.3f} s")
+        check(abs(p + 1 - n61) <= 2 * math.isqrt(p) + 1,
+              "#E(2^61 - 1) breaks Hasse's bound")
+        rng, held = random.Random(7), 0
+        while held < 2:
+            x = rng.randrange(p)
+            y = sqrt_mod((x * x * x + a * x + b) % p, p)
+            if y is not None:
+                check((Point(x, y, curve) * n61).is_zero(),
+                      f"#E(2^61 - 1)·P is not O at x = {x}")
+                held += 1
+        log("#E(2^61 - 1): within Hasse's bound, N·P = O on two points")
+
+    with Phase("14e the examples as users run them"):
+        run_module("examples.interp_eval", [])
+        run_module("examples.find_curve", [str(FIND_CURVE_K)])
+        run_module("examples.schoof_large", ["61"])
+    return counts
 
 
 def main() -> int:
@@ -1827,15 +2019,17 @@ def main() -> int:
             SASS[form] = kernel_sass(libs[form], form)
             spec = FORM_SPEC[form]
             nz, blocks = fold_nonzero(spec), max(words(spec), 1)
+            rounds = fold_rounds(spec)
+            log(f"[{form}] fold rounds of this run's values: {rounds}")
             for k in KERNELS:
                 if k != "fused_cascade":
-                    per = sass_count.thread_counts(SASS[form][k], FOLD_ROUNDS,
+                    per = sass_count.thread_counts(SASS[form][k], rounds,
                                                    nz, (), blocks)
                     log(f"{k}[{form}]: one thread issues {per}")
             cas = SASS[form]["fused_cascade"]
-            base = sass_count.thread_counts(cas, FOLD_ROUNDS, nz, (), blocks)
+            base = sass_count.thread_counts(cas, rounds, nz, (), blocks)
             for kind in (0, 1):
-                one = sass_count.thread_counts(cas, FOLD_ROUNDS, nz, [kind],
+                one = sass_count.thread_counts(cas, rounds, nz, [kind],
                                                blocks)
                 log(f"fused_cascade[{form}]: one thread issues {base} "
                     f"outside the levels, and per level of kind {kind} "
@@ -1931,9 +2125,11 @@ def main() -> int:
                     gen, gsched, grun, GSPEC["stark"], batch, "cios16 stark")
                 kernels_against_plain(gen, gsched, grun, GSPEC[label], batch,
                                       "cios16 slack 0", small_only=True)
-            else:
+            else:  # a launch at n = 2^10 is shorter than the host's work
+                # between launches: the kernels' times from a trace
                 gstats[label] = kernels_against_plain(
-                    gen, gsched, grun, GSPEC[label], batch, label)
+                    gen, gsched, grun, GSPEC[label], batch, label,
+                    profiled=PATHS[label][0] < N)
             torch.cuda.empty_cache()
 
     with Phase("4d the one-limb fold form against its plain versions"):
@@ -1990,6 +2186,11 @@ def main() -> int:
         log(f"D-engine, one DOP_LEVEL step ({sched.bs_max} rows): "
             f"{d_ms:.4f} ms")
         del D, iD
+
+    # the host oracle's ENTER of lane 0 starts now, beside phases 7-13
+    host_child = start_host_enter([int(v) for v in
+                                   fd.decode(SPEC, coeffs[0])])
+    host_want = [int(v) for v in fd.decode(SPEC, scan_out[0])]
 
     os.environ["ECFFT_EXECUTOR"] = "unrolled"
     with Phase("7a unrolled executor: ENTER gated against the native engine"):
@@ -2119,8 +2320,11 @@ def main() -> int:
     del ftree
 
     with Phase("13 the per-op bench suite, two runs"):
-        bench_suite(["--field", "m31", "--n", "2048", "--batch", "256"])
-        bench_suite(["--comparison", "--batch", "128"])
+        run_module("bench_suite",
+                   ["--field", "m31", "--n", "2048", "--batch", "256"])
+        run_module("bench_suite", ["--comparison", "--batch", "128"])
+
+    new_launches["m31"].update(host_side(host_child, host_want))
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():

@@ -4,9 +4,12 @@ The port's counterpart of ``ecfft_tpu/native.py``, bound to the same
 source, which ``ops._build.native_library`` compiles into the port's own
 build directory. The engine is the port's independent single-core oracle
 (4×64 Montgomery arithmetic), the baseline that ``chip_smoke.py`` measures,
-the FFTree builder (:func:`build_tree_native`) and FIND_CURVE's search
+the FFTree builder (:func:`build_tree_native`), FIND_CURVE's search
 for a fresh prime's curve (:func:`find_curve_native`,
-:func:`find_curve_parallel`, with the source of their originals).
+:func:`find_curve_parallel`), the Frobenius trace behind Schoof's count
+(:func:`schoof_trace_native`) and the single-core Montgomery product's
+latency (:func:`mont_mul_ns`); these four have the source of their
+originals.
 
 All boundary values are 32-byte little-endian canonical integers.
 """
@@ -73,6 +76,11 @@ def lib() -> ctypes.CDLL:
                                       ctypes.c_uint64, ctypes.c_uint64,
                                       ctypes.c_char_p, ctypes.c_char_p,
                                       ctypes.c_char_p, ctypes.c_char_p]
+        so.ecn_schoof_trace.restype = ctypes.c_int64
+        so.ecn_schoof_trace.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                        ctypes.c_char_p, ctypes.c_uint32]
+        so.ecn_mul_throughput.restype = ctypes.c_double
+        so.ecn_mul_throughput.argtypes = [ctypes.c_char_p, ctypes.c_uint64]
         _lib = so
     return _lib
 
@@ -286,3 +294,32 @@ def find_curve_native(p: int, k: int, seed: int = 1,
         return None
     a, bb, x, y = (int.from_bytes(b.raw, "little") for b in bufs)
     return int(n), a, bb, x, y
+
+
+def schoof_trace_native(p: int, a: int, b: int, ell: int) -> int:
+    """Frobenius trace t mod ell of y² = x³ + ax + b over F_p, computed
+    by the native engine's endomorphism arithmetic in F_p[x]/ψ_ℓ
+    (schoofs.rs:76-138; ℓ=2 parity test schoofs.rs:345-366). 4×64
+    Montgomery field ops make this practical far beyond the pure-python
+    path's ~64-bit ceiling (see ecfft_tpu_torch.schoof.cardinality_native)."""
+    t = lib().ecn_schoof_trace(
+        p.to_bytes(32, "little"),
+        (a % p).to_bytes(32, "little"),
+        (b % p).to_bytes(32, "little"),
+        ell,
+    )
+    if t < 0:
+        raise ArithmeticError(f"native schoof trace failed for l={ell}")
+    return int(t)
+
+
+def mont_mul_ns(field: str = "secp256k1", iters: int = 2_000_000) -> float:
+    """Measured single-core Montgomery-mul latency (ns) — the baseline
+    constant for bench.py's vs_baseline."""
+    import time
+
+    spec = FIELDS[field]
+    p_bytes = spec.p.to_bytes(32, "little")
+    t0 = time.perf_counter()
+    lib().ecn_mul_throughput(p_bytes, iters)
+    return (time.perf_counter() - t0) / iters * 1e9

@@ -1,9 +1,11 @@
-"""Host-side dense univariate polynomials over F_p (python-int coeffs).
+"""Dense polynomials over F_p as python-int coefficient lists.
 
-A jax-free copy of ``ecfft_tpu/utils/poly.py``: the root finding that
-``ec/curve.py`` needs (square-free factorization → distinct-degree
-factorization → Cantor–Zassenhaus splitting) and its helpers. Every
-function here has the same source as its original (tested).
+A jax-free copy of ``ecfft_tpu/utils/poly.py``: arithmetic (add, sub,
+mul, divmod, gcd, extended gcd, powers mod a polynomial), the root finding
+that ``ec/curve.py`` needs (square-free factorization → distinct-degree
+factorization → Cantor–Zassenhaus splitting) and Horner evaluation, which
+Schoof's point count (``schoof.py``) and the examples use. Every function
+here has the same source as its original (tested).
 
 A polynomial is a ``list[int]`` of coefficients, low degree first, with no
 trailing zeros (the zero polynomial is ``[]``). All functions take the
@@ -35,6 +37,16 @@ def is_zero(f: Poly) -> bool:
     return len(f) == 0
 
 
+def add(f: Poly, g: Poly, p: int) -> Poly:
+    n = max(len(f), len(g))
+    out = [0] * n
+    for i, c in enumerate(f):
+        out[i] = c
+    for i, c in enumerate(g):
+        out[i] = (out[i] + c) % p
+    return trim(out)
+
+
 def sub(f: Poly, g: Poly, p: int) -> Poly:
     n = max(len(f), len(g))
     out = [0] * n
@@ -64,7 +76,7 @@ def mul(f: Poly, g: Poly, p: int) -> Poly:
 
 def divmod_poly(num: Poly, den: Poly, p: int) -> tuple[Poly, Poly]:
     """Quotient and remainder (cf. ark-poly divide_with_q_and_r used at
-    /root/reference/src/utils.rs:185-192)."""
+    reference/src/utils.rs:185-192)."""
     if is_zero(den):
         raise ZeroDivisionError("division by zero polynomial")
     if len(num) < len(den):
@@ -84,12 +96,12 @@ def divmod_poly(num: Poly, den: Poly, p: int) -> tuple[Poly, Poly]:
 
 
 def div_rem(num: Poly, den: Poly, p: int) -> Poly:
-    """Returns ``num % den`` (/root/reference/src/utils.rs:185-192)."""
+    """Returns ``num % den`` (reference/src/utils.rs:185-192)."""
     return divmod_poly(num, den, p)[1]
 
 
 def gcd(a: Poly, b: Poly, p: int) -> Poly:
-    """Monic-normalized polynomial GCD (/root/reference/src/utils.rs:132-141)."""
+    """Monic-normalized polynomial GCD (reference/src/utils.rs:132-141)."""
     while not is_zero(b):
         a, b = b, div_rem(a, b, p)
     if is_zero(a):
@@ -97,9 +109,28 @@ def gcd(a: Poly, b: Poly, p: int) -> Poly:
     return scale(a, inv_mod(a[-1], p), p)
 
 
+def xgcd(a: Poly, b: Poly, p: int) -> tuple[Poly, Poly, Poly]:
+    """Extended Euclid: (s, t, g) with a*s + b*t = g, g monic
+    (reference/src/utils.rs:147-182)."""
+    s, old_s = [], [1]
+    r, old_r = list(b), list(a)
+    while not is_zero(r):
+        q, _ = divmod_poly(old_r, r, p)
+        old_r, r = r, sub(old_r, mul(q, r, p), p)
+        old_s, s = s, sub(old_s, mul(q, s, p), p)
+    if not is_zero(b):
+        t = divmod_poly(sub(old_r, mul(old_s, a, p), p), b, p)[0]
+    else:
+        t = []
+    if is_zero(old_r):
+        return old_s, t, old_r
+    lead_inv = inv_mod(old_r[-1], p)
+    return scale(old_s, lead_inv, p), scale(t, lead_inv, p), scale(old_r, lead_inv, p)
+
+
 def pow_mod(a: Poly, exp: int, modulus: Poly, p: int) -> Poly:
     """(a^exp) % modulus via square-and-multiply
-    (/root/reference/src/utils.rs:195-211)."""
+    (reference/src/utils.rs:195-211)."""
     res = [1]
     acc = div_rem(a, modulus, p)
     while exp:
@@ -111,7 +142,7 @@ def pow_mod(a: Poly, exp: int, modulus: Poly, p: int) -> Poly:
 
 
 def derivative(f: Poly, p: int) -> Poly:
-    """Formal derivative (/root/reference/src/utils.rs:214-222)."""
+    """Formal derivative (reference/src/utils.rs:214-222)."""
     return trim([i * c % p for i, c in enumerate(f)][1:])
 
 
@@ -124,13 +155,13 @@ def evaluate(f: Poly, x: int, p: int) -> int:
 
 
 def rand_poly(d: int, p: int, rng: random.Random) -> Poly:
-    """Random polynomial of degree ≤ d (/root/reference/src/utils.rs:224-226)."""
+    """Random polynomial of degree ≤ d (reference/src/utils.rs:224-226)."""
     return trim([rng.randrange(p) for _ in range(d + 1)])
 
 
 def square_free_factors(f: Poly, p: int) -> Poly:
     """f / gcd(f, f') — the square-free part
-    (/root/reference/src/utils.rs:118-127)."""
+    (reference/src/utils.rs:118-127)."""
     fp = derivative(f, p)
     if is_zero(fp):
         return list(f)
@@ -140,7 +171,7 @@ def square_free_factors(f: Poly, p: int) -> Poly:
 def distinct_degree_factors(f: Poly, p: int) -> dict[int, Poly]:
     """Maps degree d → product of all monic irreducible degree-d factors.
 
-    Input must be square-free (/root/reference/src/utils.rs:52-78). Prime
+    Input must be square-free (reference/src/utils.rs:52-78). Prime
     fields only (matching the reference's own TODO at utils.rs:61).
     """
     x = [0, 1]
@@ -167,7 +198,7 @@ def distinct_degree_factors(f: Poly, p: int) -> dict[int, Poly]:
 def equal_degree_factorization(f: Poly, d: int, p: int,
                                rng: random.Random | None = None) -> list[Poly]:
     """Cantor–Zassenhaus probabilistic splitting of a product of degree-d
-    irreducibles (/root/reference/src/utils.rs:82-113)."""
+    irreducibles (reference/src/utils.rs:82-113)."""
     if d == 0:
         return []
     rng = rng or random.Random(0xECFF7)
@@ -192,7 +223,7 @@ def equal_degree_factorization(f: Poly, d: int, p: int,
 
 def find_roots(f: Poly, p: int, rng: random.Random | None = None) -> list[int]:
     """All distinct roots of f in F_p, sorted ascending
-    (/root/reference/src/utils.rs:25-44)."""
+    (reference/src/utils.rs:25-44)."""
     sf = square_free_factors(f, p)
     ddf = distinct_degree_factors(sf, p)
     d1 = ddf.get(1)

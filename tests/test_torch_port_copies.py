@@ -33,6 +33,10 @@ def test_imports_and_builds_with_jax_blocked():
         "tree = ec.build_fftree_native('secp256k1', 16, device='cpu')\n"
         "x = tree.encode([[3 * i + 1 for i in range(16)]])\n"
         "assert torch.equal(tree.exit(tree.enter(x)), x)\n"
+        "import ecfft_tpu_torch.host.fftree, ecfft_tpu_torch.schoof\n"
+        "import ecfft_tpu_torch.ec.binary\n"
+        "from ecfft_tpu_torch.examples import find_curve, interp_eval\n"
+        "from ecfft_tpu_torch.examples import schoof_large\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'ecfft_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -59,7 +63,8 @@ def test_no_jax_imports_in_the_port():
 
 
 COPIES = ["errors", "fields.host", "utils.poly", "ec.curve",
-          "fields.registry", "find_curve"]
+          "fields.registry", "find_curve", "host.fftree", "fields.binary",
+          "ec.binary", "schoof"]
 
 
 def _source(obj) -> str:
@@ -122,14 +127,21 @@ def test_native_bindings_have_their_originals_source(name):
 
 
 @pytest.mark.parametrize("name", ["find_curve_native",
-                                  "find_curve_parallel"])
+                                  "find_curve_parallel",
+                                  "schoof_trace_native", "mont_mul_ns"])
 def test_find_curve_bindings_have_their_originals_source(name):
-    """FIND_CURVE's native search, one thread and raced over threads."""
+    """FIND_CURVE's native search, one thread and raced over threads;
+    Schoof's Frobenius trace; the single-core product's latency."""
     from ecfft_tpu import native as jnat
     from ecfft_tpu_torch import native as tnat
 
-    assert inspect.getsource(getattr(tnat, name)) == \
-        inspect.getsource(getattr(jnat, name))
+    assert _source(getattr(tnat, name)) == _source(getattr(jnat, name))
+
+
+def test_mont_mul_ns_runs():
+    from ecfft_tpu_torch.native import mont_mul_ns
+
+    assert 5 < mont_mul_ns("secp256k1", 100_000) < 5000
 
 
 def test_native_bindings_declare_the_originals_argument_types():
@@ -139,10 +151,11 @@ def test_native_bindings_declare_the_originals_argument_types():
     for fn in ("ecn_enter", "ecn_exit", "ecn_extend", "ecn_mextend",
                "ecn_degree", "ecn_redc", "ecn_mod", "ecn_vanish",
                "ecn_table", "ecn_mats", "ecn_batch_inv", "ecn_find_curve",
-               "ecn_layer"):
+               "ecn_layer", "ecn_schoof_trace", "ecn_mul_throughput"):
         port, orig = getattr(tnat.lib(), fn), getattr(jnat.lib(), fn)
         assert port.argtypes == orig.argtypes, fn
-    for fn in ("ecn_degree", "ecn_layer"):
+    for fn in ("ecn_degree", "ecn_layer", "ecn_schoof_trace",
+               "ecn_mul_throughput"):
         assert getattr(tnat.lib(), fn).restype is \
             getattr(jnat.lib(), fn).restype, fn
 

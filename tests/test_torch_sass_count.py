@@ -317,3 +317,37 @@ def test_fold_loop_of_a_two_word_form(blocks, want):
     its blocks skipped."""
     (insts,) = sass_count.functions(_sass("fold4", FOLD2)).values()
     assert sass_count.thread_counts(insts, 2, 1, (), blocks) == want
+
+
+# one word ("fold1"): the compiler hoists the test of F's one word out of
+# the fold loop, which then has no skippable block
+FOLD1 = ["ISETP.GE.AND P0, PT, R0, c[0x0][0x0], PT",  # 0
+         "@P0 EXIT",
+         "ISETP.NE.AND P1, PT, R1, RZ, PT",            # 2: F's word
+         "@!P1 BRA @10>",                              # 3: F = 0 at 10
+         "LOP3.LUT R9, R9, R10, RZ, 0xfc, !PT",        # 4: the fold loop
+         "IMAD.WIDE.U32 R4, R5, R6, R4",
+         "SHF.R.U32.HI R9, RZ, 0x10, R4",
+         "ISETP.NE.AND P0, PT, R9, RZ, PT",
+         "@P0 BRA @4>",                                # 8: its back edge
+         "BRA @12>",
+         "SHF.R.U32.HI R9, RZ, 0x10, R4",              # 10: F = 0
+         "LOP3.LUT R4, R4, 0xffff, RZ, 0xc0, !PT",
+         "IADD3 R4, R4, R9, RZ",                       # 12: the join
+         "STG.E [R2], R4",
+         "EXIT"]
+
+
+@pytest.mark.parametrize("rounds,nz,blocks,want", [
+    (3, 1, 1, {"fma": 3, "alu": 2 + 3 * 3 + 1, "all": 4 + 3 * 5 + 1 + 3}),
+    (1, 1, 1, {"fma": 1, "alu": 2 + 3 + 1, "all": 4 + 5 + 1 + 3}),
+    (3, 0, 1, {"fma": 0, "alu": 2 + 2 + 1, "all": 4 + 2 + 3}),
+    (3, 1, 2, {"fma": 0, "alu": 2 + 2 + 1, "all": 4 + 2 + 3})])
+def test_fold_loop_of_a_one_word_form_behind_its_hoisted_test(rounds, nz,
+                                                              blocks, want):
+    """At one word (``fold_blocks`` 1) with F's word nonzero (``nz`` 1) the
+    side of the hoisted test that holds the loop runs, the loop ``rounds``
+    times; with F = 0, or read as a form of more words, the branch is an
+    ordinary two-way branch and the shorter side runs."""
+    (insts,) = sass_count.functions(_sass("fold1", FOLD1)).values()
+    assert sass_count.thread_counts(insts, rounds, nz, (), blocks) == want

@@ -30,7 +30,11 @@ lower bound:
   word of the fold multiplier F, so ``fold_blocks`` is the form's word
   count, 8 at 16 limbs): it runs ``rounds`` times, and of its skipped
   blocks ``nz`` run each round, one per nonzero word of F. The CIOS form
-  has no such loop: its rounds are unrolled;
+  has no such loop: its rounds are unrolled. At one word (``fold_blocks``
+  1, the "fold1" form) the compiler hoists the test of F's one word out
+  of the loop: with ``nz`` > 0, a two-way branch of which one side holds
+  a loop and the other none runs the side with the loop, and that loop
+  is the fold loop, run ``rounds`` times;
 - a loop with a barrier or a warp shuffle (``SHFL``) in it is a
   cascade's level loop (the barrier per level of cascade_kernel, the
   shuffles of warp_cascade.cuh's levels): it runs once per entry of
@@ -146,9 +150,11 @@ class _Walk:
                     (ins.target, last.target), last.target)
         return None
 
-    def count(self, lo: int, hi: int, kind: int, kinds, fold_n: int = 0):
+    def count(self, lo: int, hi: int, kind: int, kinds, fold_n: int = 0,
+              hoisted: bool = False):
         """Counts of the walk over [lo, hi); ``fold_n`` > 0 inside a fold
-        loop with that many skippable blocks."""
+        loop with that many skippable blocks; ``hoisted`` on the side of a
+        one-word form's hoisted test of F, whose loop is the fold loop."""
         c = collections.Counter()
         i = self.at.get(lo)
         while i is not None and i < len(self.insts):
@@ -158,7 +164,7 @@ class _Walk:
             back = self.loops.get(ins.addr)
             if back is not None and not (ins.addr == lo
                                          and back + self.step == hi):
-                c += self.loop(ins.addr, back, kind, kinds)
+                c += self.loop(ins.addr, back, kind, kinds, hoisted)
                 i = self.at[back] + 1
                 continue
             for k in classify(ins):
@@ -188,6 +194,12 @@ class _Walk:
         return c
 
     def side(self, d, kind, kinds):
+        if self.fold_blocks == 1 and self.nz:
+            loops = [any(lo <= h < hi for h in self.loops)
+                     for lo, hi in d[:2]]
+            if loops[0] != loops[1]:
+                lo, hi = d[0] if loops[0] else d[1]
+                return self.count(lo, hi, kind, kinds, hoisted=True)
         sides = [self.count(lo, hi, kind, kinds) for lo, hi in d[:2]]
         calls = [any(b.base == "CALL" for b in self.span(*s)) for s in d[:2]]
         if calls[0] != calls[1]:
@@ -197,7 +209,7 @@ class _Walk:
             return by_fma[1] if kind else by_fma[0]
         return min(sides, key=lambda s: s["all"])
 
-    def loop(self, head: int, back: int, kind, kinds):
+    def loop(self, head: int, back: int, kind, kinds, hoisted=False):
         body = self.span(head, back + self.step)
         end = back + self.step
         if any(b.base in ("BAR", "SHFL") for b in body):
@@ -206,7 +218,7 @@ class _Walk:
                 c += self.count(head, end, k, kinds)
             return c
         n_skip = sum(self.skip_block(b) for b in body)
-        if n_skip >= self.fold_blocks:
+        if hoisted or n_skip >= self.fold_blocks:
             one = self.count(head, end, kind, kinds, n_skip)
             return collections.Counter(
                 {k: v * self.rounds for k, v in one.items()})
