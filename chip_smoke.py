@@ -47,7 +47,9 @@ stops the run with a non-zero exit:
    value below 2^16, timed at the window of phase 11's 64513 NTT (A =
    2^10, B = 256; each launch's device time from a ``torch.profiler``
    trace, since the host's work between launches outlasts a launch
-   there), and for 97 and 65521 at the small shapes;
+   there; where three traces hold no record of the kernel, from CUDA
+   events around one launch queued behind a spin, and the log says
+   which), and for 97 and 65521 at the small shapes;
 5. the native single-core ENTER baseline (best of 3);
 6. the scan executor (the default): batched ENTER of 256 polynomials at
    n = 2^16 gated bit-for-bit against the native engine on polys 0, 128
@@ -140,8 +142,16 @@ stops the run with a non-zero exit:
    users run them, each in a process of its own that must exit 0:
    ``python -m ecfft_tpu_torch.examples.interp_eval`` (n = 2^10, batch 8,
    on the card), ``find_curve 10`` and ``schoof_large 61``;
-15. a JSON line of the kernels (the nine 16-limb forms, whose launches are
-   phases 6–8's, the nine M31 forms, phase 9's, the nine of each general
+15. the main bench as ``python -m ecfft_tpu_torch.bench`` runs it, called
+   in this process at secp256k1, n = 2^16, B = 256, 5 reps, once on the
+   default executor and once with ``ECFFT_EXECUTOR=unrolled``, on phase
+   3's tree (saved to the bench's cache file, so the bench builds only its
+   native baseline's tree): each run prints exactly one JSON line naming
+   the executor asked for, passes its gate and reports polys/s > 0, with
+   no plain version called on a CUDA tensor; its polys/s printed beside
+   phases 6b's and 7b's;
+16. a JSON line of the kernels (the nine 16-limb forms, whose launches are
+   phases 6–8's and 15's, the nine M31 forms, phase 9's, the nine of each general
    form, phase 10's (and phase 11's STARK NTT for "cios16"), and the nine
    "fold1" forms, phases 11's and 12's, each with its form's launches of
    phase 8d added, and the M31 forms' with 14b's; 72 in all, named
@@ -150,7 +160,9 @@ stops the run with a non-zero exit:
 """
 
 import collections
+import contextlib
 import ctypes
+import io
 import json
 import math
 import multiprocessing
@@ -165,7 +177,7 @@ import types
 import numpy as np
 import torch
 
-from ecfft_tpu_torch import FFTree, build_fftree_native
+from ecfft_tpu_torch import FFTree, bench, build_fftree_native
 from ecfft_tpu_torch.ec.curve import Point, ShortWeierstrass
 from ecfft_tpu_torch.fields.binary import GF512
 from ecfft_tpu_torch.fields import device as fd
@@ -431,27 +443,56 @@ def cuda_ms(fn, reps, settle_s=0.0):
     return t0.elapsed_time(t1) / reps
 
 
-def profiled_ms(fn, reps):
+def profiled_ms(fn, reps, tries=3):
     """Mean device milliseconds per run of the port's kernels that ``fn``
     launches, read from a ``torch.profiler`` trace of ``reps`` runs after
     one warm-up: the kernels' own durations, without the gaps in which the
     card waits for the host's next launch (which CUDA events over
-    back-to-back launches include). None where the trace holds none."""
+    back-to-back launches include). A trace that holds none of them (CUPTI
+    now and then hands back no kernel record) is taken again, up to
+    ``tries`` traces in all; None where none of them holds one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.end - e.time_range.start for e in dev
+              if any(k in e.name for k in KERNEL_BASES)]
+        log(f"profiled {len(us)} kernel runs over {reps} calls")
+        if us:
+            return sum(us) / 1e3 / reps
+        log(f"trace {attempt} of {tries} holds none of the port's kernels "
+            f"({len(dev)} device records: {sorted({e.name for e in dev})[:4]})")
+    return None
+
+
+def fenced_ms(fn, reps, sleep_cycles=2_000_000):
+    """Mean device milliseconds of one run of ``fn`` between two CUDA
+    events, the card held busy by a spin (``torch.cuda._sleep``, about a
+    millisecond) while the host enqueues the events and the run, so that
+    the host's work before the launch falls outside them. The time where
+    no profiler trace holds the kernels; it counts every device operation
+    that ``fn`` enqueues and the events' own few microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        t0.record()
+        fn()
+        t1.record()
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and any(k in e.name for k in KERNEL_BASES)]
-    log(f"profiled {len(us)} kernel runs over {reps} calls")
-    return sum(us) / 1e3 / reps if us else None
+        total += t0.elapsed_time(t1)
+    return total / reps
 
 
 def reset_counts():
@@ -798,8 +839,10 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
     PyTorch expression with ``%`` (``library_ms``). ``label`` names the
     form in the log. With ``profiled`` (main shapes whose launch is
     shorter than the host's work between launches) ``ms`` is the kernel's
-    device time from a profiler trace (:func:`profiled_ms`), and
-    ``events_ms`` the CUDA-event time of back-to-back launches beside it."""
+    device time from a profiler trace (:func:`profiled_ms`; where no trace
+    holds the kernel, from events around one launch, :func:`fenced_ms`,
+    named in ``ms_source``), and ``events_ms`` the CUDA-event time of
+    back-to-back launches beside it."""
     W, A, bsx = sched.W, sched.A, sched.bs_max
     m31, nl = fd.is_m31(spec), spec.num_limbs
     res = {}
@@ -896,11 +939,14 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
                 clk = clock_now()
                 events_ms = ms
                 if profiled:
-                    ms = profiled_ms(lambda: kern(st), 20)
-                    check(ms is not None, f"{name}: the profiler recorded "
-                                          "no kernel")
+                    ms, source = profiled_ms(lambda: kern(st), 20), \
+                        "torch.profiler"
+                    if ms is None:  # no trace held it: events, fenced
+                        ms, source = fenced_ms(lambda: kern(st), 20), \
+                            "CUDA events around one launch behind a spin"
+                    check(ms > 0, f"{name}: no device time measured")
                     log(f"{name} at {what}: device time {ms:.4f} ms a "
-                        f"launch (torch.profiler), CUDA events over "
+                        f"launch ({source}), CUDA events over "
                         f"back-to-back launches {events_ms:.4f} ms")
                 plain_ms = cuda_ms(lambda: plain(st), 3)
                 lib_ms = cuda_ms(lambda: lib(st), 3) if m31 else None
@@ -918,7 +964,7 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
                 res[kind] = {"ms": ms, "plain_ms": plain_ms, **b,
                              "library_ms": lib_ms, "shape": what}
                 if profiled:
-                    res[kind]["events_ms"] = events_ms
+                    res[kind].update(events_ms=events_ms, ms_source=source)
             elif fused:
                 ms = cuda_ms(lambda: kern(st), 20, SETTLE_S)
                 log(f"{name} at {what}: kernel {ms:.3f} ms (then "
@@ -1833,6 +1879,56 @@ def run_module(module, args) -> None:
 # ------------------------------------------------ the host-side modules
 
 
+def main_bench():
+    """Phase 15: ``ecfft_tpu_torch.bench.main()`` at the flagship shape on
+    the default executor, then on the unrolled one, each with the counts
+    set to 0 just before and read just after and the plain versions
+    watched; returns (the launches of both runs, polys/s by executor)."""
+    knobs = {"ECFFT_BENCH_FIELD": FIELD, "ECFFT_BENCH_N": str(N),
+             "ECFFT_BENCH_BATCH": str(BATCH), "ECFFT_BENCH_REPS": str(REPS)}
+    saved = {k: os.environ.pop(k, None)
+             for k in (*knobs, "ECFFT_EXECUTOR", "ECFFT_BENCH_DEVICE")}
+    os.environ.update(knobs)
+    counts, rates = collections.Counter(), {}
+    try:
+        for executor in ("scan", "unrolled"):
+            if executor == "unrolled":
+                os.environ["ECFFT_EXECUTOR"] = "unrolled"
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            reset_counts()
+            with PlainOnCard() as plain, contextlib.redirect_stdout(out):
+                res = bench.main()
+            torch.cuda.synchronize()
+            got = read_counts()
+            lines = out.getvalue().splitlines()
+            log(f"{executor} bench: {out.getvalue().strip()}")
+            check(len(lines) == 1, f"the {executor} bench printed "
+                                   f"{len(lines)} lines on stdout")
+            check(json.loads(lines[0]) == res,
+                  f"the {executor} bench's line is not its result")
+            check(res["executor"] == executor,
+                  f"the bench ran {res['executor']}, not {executor}")
+            check(res["value"] > 0, f"the {executor} bench's value")
+            check(not plain.calls, f"a plain version ran on the card in "
+                                   f"the {executor} bench: "
+                                   f"{dict(plain.calls)}")
+            kinds = SCAN_KERNELS if executor == "scan" else UNROLLED_KERNELS
+            check(all(got[k] > 0 for k in kinds),
+                  f"the {executor} bench did not launch each of {kinds}: "
+                  f"{got}")
+            log(f"{executor} bench launches: {got}")
+            counts.update(got)
+            rates[executor] = res["value"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return counts, rates
+
+
 def host_enter(field, n, coeffs, conn) -> None:
     """Phase 14a's child process: the host oracle's tree of size ``n``
     over ``field`` and its ENTER of ``coeffs`` (python ints), sent back as
@@ -2267,6 +2363,9 @@ def main() -> int:
         check(all(new_launches[form][k] > 0
                   for k in ("mulss", "muladd1", "muladd2")),
               f"phase 8d launched no mulss, muladd1 or muladd2 of {form}")
+    # phase 15's bench loads this tree instead of building it
+    save_tables_npz(tree, os.path.join(bench.CACHE_DIR,
+                                       f".bench_tree_{FIELD}_{N}.npz"))
     del tree, nt
     torch.cuda.empty_cache()
 
@@ -2325,6 +2424,16 @@ def main() -> int:
         run_module("bench_suite", ["--comparison", "--batch", "128"])
 
     new_launches["m31"].update(host_side(host_child, host_want))
+
+    with Phase(f"15 the main bench (ecfft_tpu_torch.bench) in this process: "
+               f"{FIELD}, n = {N}, B = {BATCH}, {REPS} reps, both "
+               "executors"):
+        bench_counts, bench_rates = main_bench()
+        new_launches["fold16"].update(bench_counts)
+        log("ENTER polys/s, this run: bench scan "
+            f"{bench_rates['scan']:.3f} (phase 6b {scan_tput:.3f}), bench "
+            f"unrolled {bench_rates['unrolled']:.3f} (phase 7b "
+            f"{un_tput:.3f})")
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
