@@ -3,8 +3,13 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card, ``nvcc``, ``cuobjdump`` and ``g++``, and imports
-nothing of JAX. Phases, each printed with its seconds; the first failure
-stops the run with a non-zero exit:
+nothing of JAX. On the card each schedule's step loop runs as a CUDA
+graph, captured at the first call of its key and replayed after
+(``ecfft_tpu_torch/ops/graphs.py``): every gated call of phases 6–12 and
+14b is a replay, made after a set-up call (the eager loop, whose answer
+it must equal, and the capture), with the launch counts set to 0 just
+before the replay and read just after. Phases, each printed with its
+seconds; the first failure stops the run with a non-zero exit:
 
 1. device report: the card, ``nvidia-smi``'s name and power limit, its SM
    count and top SM clock, the CUDA version, ``nvcc`` and ``triton``;
@@ -29,12 +34,13 @@ stops the run with a non-zero exit:
    levels, the cascade) also on inputs that stress the word reduction,
    for secp256k1 and for 2^255 − 19; then each timed at its main shape
    (CUDA events, with the SM clock and power draw read just after) beside
-   its plain version, its bound (bytes or word products) and this
-   design's issue bound; then (4b) the nine M31 forms likewise (edge
-   values 0, 1, p − 1, p − 2, 2^30, (p − 1)/2, 2^16 and seeded random ones
-   at B = 1 and 256, rows outside the window untouched, the square, then
-   the M31 main shapes at B = 2048), each timed beside its plain version,
-   its byte bound and the int64 PyTorch expression of the same function;
+   its plain version (one run after a warm-up), its bound (bytes or word
+   products) and this design's issue bound; then (4b) the nine M31 forms
+   likewise (edge values 0, 1, p − 1, p − 2, 2^30, (p − 1)/2, 2^16 and
+   seeded random ones at B = 1 and 256, rows outside the window
+   untouched, the square, then the M31 main shapes at B = 2048), each
+   timed beside its plain version, its byte bound and the int64 PyTorch
+   expression of the same function;
    then (4c) the general prime's forms likewise (edge values 0, 1, 2,
    p − 1, p − 2, p − 3, (p − 1)/2, R mod p, R² mod p, p − (R mod p) and
    the largest below 2^(16L − 1); seeded random ones), each timed at its
@@ -66,7 +72,8 @@ stops the run with a non-zero exit:
    Each is gated bit for bit against the native engine on lanes 0 and
    255, the two executors against each other on the whole batch, its
    launch counts against the schedule's steps and the fusion analysis,
-   and timed warm (best of 2, fenced by ``torch.cuda.synchronize()``);
+   and timed warm (the gated replay, fenced by
+   ``torch.cuda.synchronize()``);
    8c. persistence on the same tree: ``serialize_fftree`` in both modes,
    the bytes identical after a deserialize and a reserialize; the npz
    tables saved and loaded; ``prepare(cache_dir=…)`` on a temporary
@@ -89,18 +96,30 @@ stops the run with a non-zero exit:
    tables, VANISH over 2^15 points) equal on the whole batch to the
    scheduled method on the same input, both timed warm (best of 2), and
    a ``ShardedFFTree`` over two shards of the card running the same
-   inputs, plus REDC and MOD by tables given at run time: the shards,
+   inputs on the eager loop (each replica's one call would capture a
+   graph it never replays), plus REDC and MOD by tables given at run
+   time: the shards,
    concatenated, equal to the unsharded output, each on its device;
    (c) the unscheduled algorithms likewise on phase 3b's M31 tree at
    B = 256. Throughout 8d the kernels' plain versions (and the plain
    field product) must see no CUDA tensor, and mulss, muladd1 and muladd2
    must launch;
+   8e. replay against the eager loop on the same tree: ENTER and EXIT on
+   both executors and the scan DEGREE, each on a fresh batch in turns in
+   one call (eager, replay, replay, eager), every output equal bit for
+   bit, with polys/s both ways; one eager call and one replay under
+   ``torch.profiler`` (the host's kernel launches beside the replay's
+   graph launches and device operations, each one's busy share), the
+   graph's warm-up, capture and instantiate seconds, and the device
+   memory: each call's peak above what was allocated before it, and what
+   the graphs hold between calls;
 9. M31: a batch of B = 2048 at n = 2^16 through all eight algorithms on
    both executors (ENTER with its EXIT round trip, then the others as in
    phase 8), each gated bit for bit against the native engine on lanes 0
    and B − 1 and the executors against each other on the whole batch, its
    launches against the schedule and the analysis, timed warm with the
-   peak device memory; every M31 form must run;
+   peak device memory; every M31 form must run; 9c. replay against the
+   eager loop as 8e, on the same tree: ENTER and EXIT on both executors;
 10. the general prime, each field as phase 9 on both executors: a 256-bit
    prime of slack 0 without a fold (the CIOS form, 16 limbs) at the full
    width, n = 2^16, B = 256, all eight algorithms; M61 (the fold form, 4
@@ -189,7 +208,7 @@ from ecfft_tpu_torch.host.fftree import (_evaluate, build_host_fftree,
 from ecfft_tpu_torch import native
 from ecfft_tpu_torch.native import NativeFFTree, native_library
 from ecfft_tpu_torch.ntt import STARK_GENERATOR, STARK_P, NTTPlan
-from ecfft_tpu_torch.ops import _build, emit, step, unrolled
+from ecfft_tpu_torch.ops import _build, emit, graphs, step, unrolled
 from ecfft_tpu_torch.ops.schedule import _d_engine
 from ecfft_tpu_torch.parallel.sharding import ShardedFFTree, make_mesh
 from ecfft_tpu_torch.schoof import cardinality_native
@@ -197,6 +216,7 @@ from ecfft_tpu_torch.serialize import deserialize_fftree, serialize_fftree
 from ecfft_tpu_torch.serialize_native import load_tables_npz, save_tables_npz
 from ecfft_tpu_torch.utils.poly import evaluate
 from tools import sass_count
+from tools.profile_torch_enter import trace
 
 FIELD, N, BATCH, REPS = "secp256k1", 1 << 16, 256, 5
 DEV = torch.device("cuda", 0)  # one card
@@ -948,7 +968,7 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
                     log(f"{name} at {what}: device time {ms:.4f} ms a "
                         f"launch ({source}), CUDA events over "
                         f"back-to-back launches {events_ms:.4f} ms")
-                plain_ms = cuda_ms(lambda: plain(st), 3)
+                plain_ms = cuda_ms(lambda: plain(st), 1)
                 lib_ms = cuda_ms(lambda: lib(st), 3) if m31 else None
                 b = bound(kind, A, batch, levels[1] if levels else (), spec)
                 log(f"{name} at {what}: kernel {ms:.3f} ms (then {clk}), "
@@ -1213,11 +1233,29 @@ def in_range(out, spec=SPEC) -> bool:
     return bool(((out >= 0) & (out < top)).all())
 
 
+def set_up(run, what):
+    """The set-up call of ``run``: at a step loop's first call on the card
+    the eager loop, whose answer this call returns, and its capture as a
+    CUDA graph (``ops/graphs.py``); the calls after it replay the graph.
+    Timed and logged as set-up."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    log(f"{what}: set-up call (the eager loop and its capture) "
+        f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def gate(tree, coeffs, nt_out, nt, label):
     """ENTER of the batch, then an EXIT of poly 0, each with the counts
-    set to 0 just before and read just after. Returns (ENTER output,
-    ENTER counts, EXIT counts)."""
+    set to 0 just before and read just after: replays, each after a
+    set-up call (the eager loop and its capture), whose answer it must
+    equal. Returns (ENTER output, ENTER counts, EXIT counts)."""
     spec, (batch, n) = tree.spec, coeffs.shape[:2]
+    setup = set_up(lambda: tree.enter(coeffs), f"{label} ENTER")
+    setup_back = set_up(lambda: tree.exit(setup[:1].contiguous()),
+                        f"{label} EXIT of poly 0")
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1225,6 +1263,8 @@ def gate(tree, coeffs, nt_out, nt, label):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     enter_counts = read_counts(spec)
+    check(torch.equal(out, setup), f"{label} ENTER: the replay differs "
+                                   "from the eager loop's answer")
     check(out.shape == coeffs.shape and out.dtype == torch.int32,
           f"{label} ENTER output shape")
     check(in_range(out, spec), f"{label} ENTER output limbs out of range")
@@ -1240,11 +1280,13 @@ def gate(tree, coeffs, nt_out, nt, label):
     back = tree.exit(out[:1].contiguous())
     torch.cuda.synchronize()
     exit_counts = read_counts(spec)
-    check(torch.equal(back, coeffs[:1]),
-          f"{label} EXIT does not round-trip ENTER (poly 0)")
-    log(f"{label}: first ENTER (B={batch}, n={n}) {first_s:.3f} s; gate "
+    check(torch.equal(back, coeffs[:1]) and torch.equal(setup_back, back),
+          f"{label} EXIT does not round-trip ENTER (poly 0), replayed and "
+          "eager")
+    log(f"{label}: replayed ENTER (B={batch}, n={n}) {first_s:.3f} s; gate "
         f"passed: ENTER == native on polys 0, {batch // 2}, {batch - 1}; "
-        f"EXIT(ENTER(poly 0)) == poly 0")
+        f"EXIT(ENTER(poly 0)) == poly 0; the replays == the eager loop's "
+        f"answers")
     log(f"{label} launches per ENTER: {enter_counts}")
     log(f"{label} launches per EXIT: {exit_counts}")
     return out, enter_counts, exit_counts
@@ -1265,11 +1307,11 @@ def timed_reps(tree, gen, label, batch=BATCH):
         times.append(time.perf_counter() - t0)
         del fresh
     best = min(times)
-    peak = torch.cuda.max_memory_allocated(DEV)
+    peak = torch.cuda.max_memory_allocated(DEV) + graphs.pool_bytes(DEV)
     log(f"{label} warm ENTER reps (s): {[round(t, 4) for t in times]}")
     log(f"{label} ENTER throughput: {batch / best:.3f} polys/s "
         f"({best / batch * 1e3:.4f} ms/poly); peak device memory "
-        f"{peak / 1e9:.3f} GB")
+        f"{peak / 1e9:.3f} GB (allocated at most, and the graphs' pool)")
     return batch / best, peak
 
 
@@ -1377,11 +1419,16 @@ def other_algorithms(tree, nt, gen, batch=BATCH, only=None):
 
             def run():
                 return getattr(tree, method)(x, *args)
+            setup = set_up(run, f"{name} ({ex})")
             torch.cuda.synchronize()
             reset_counts()
+            t0 = time.perf_counter()
             out = run()
             torch.cuda.synchronize()
+            times = [time.perf_counter() - t0]
             counts = read_counts(spec)
+            check(torch.equal(out, setup), f"{name} ({ex}): the replay "
+                                           "differs from the eager loop's")
             for b, w in want.items():
                 got = int(out[b]) if method == "degree" else ints(out[b])
                 check(got == w, f"{name} ({ex}) does not match the native "
@@ -1394,13 +1441,6 @@ def other_algorithms(tree, nt, gen, batch=BATCH, only=None):
             check_counts(f"{name} ({ex})", counts, sched,
                          meta if ex == "unrolled" else None)
             totals.update(counts)
-            times = []
-            for _ in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
             best = min(times)
             launched = {k: v for k, v in counts.items() if v}
             n_cmp = int((sched.xs[0] == emit.OP_CMPSEL).sum())
@@ -1546,11 +1586,19 @@ def ntt_path(label, p, g, n, batch, gen):
         calls = {}
         for inverse in (False, True):
             sched, _, meta = plan.schedule(inverse)
+
+            def run():
+                return plan.intt(outs[ex]) if inverse else plan.ntt(x)
+            setup = set_up(run, f"NTT {label} "
+                                f"{'intt' if inverse else 'ntt'} ({ex})")
             torch.cuda.synchronize()
             reset_counts()
-            out = plan.intt(outs[ex]) if inverse else plan.ntt(x)
+            out = run()
             torch.cuda.synchronize()
             counts = read_counts(spec)
+            check(torch.equal(out, setup), f"NTT {label} ({ex}): the "
+                                           "replay differs from the eager "
+                                           "loop's")
             ntt_counts_ok(f"NTT {label} {'intt' if inverse else 'ntt'} "
                           f"({ex})", counts, sched,
                           meta if ex == "unrolled" else None, spec)
@@ -1638,7 +1686,8 @@ def persistence(tree, gen, batch=BATCH):
         files = sorted(f for f in os.listdir(d) if f.startswith("."))
         log(f"cache files: {[(f, os.path.getsize(os.path.join(d, f))) for f in files]}")
         check(len(files) == 3, f"cache files {files}")
-        got = timed("the deserialized tree's ENTER",
+        set_up(lambda: t2.enter(x), "the deserialized tree's ENTER")
+        got = timed("the deserialized tree's ENTER, replayed",
                     lambda: t2.enter(x))
         check(torch.equal(got, want), "the deserialized tree's ENTER "
                                       "differs")
@@ -1650,16 +1699,21 @@ def persistence(tree, gen, batch=BATCH):
         finally:
             tfftree.build_pool, tfftree._EMITTERS = pool_builder, emitters
         check(torch.equal(t4._pool, tree._pool), "the cached pool differs")
-        got = timed("the cached npz tree's ENTER", lambda: t4.enter(x))
+        set_up(lambda: t4.enter(x), "the cached npz tree's ENTER")
+        got = timed("the cached npz tree's ENTER, replayed",
+                    lambda: t4.enter(x))
         check(torch.equal(got, want), "the cached tree's ENTER differs")
-        got = timed("the cached npz tree's EXIT", lambda: t4.exit(want))
+        set_up(lambda: t4.exit(want), "the cached npz tree's EXIT")
+        got = timed("the cached npz tree's EXIT, replayed",
+                    lambda: t4.exit(want))
         check(torch.equal(got, x), "the cached tree's EXIT differs")
     del t2, t4, got
     cpu = timed("a native-built tree on the CPU, prepared there",
                 lambda: build_fftree_native(FIELD, tree.n,
                                             device="cpu").prepare())
     timed("place_on(cuda)", lambda: cpu.place_on(DEV))
-    got = timed("the moved tree's ENTER", lambda: cpu.enter(x))
+    set_up(lambda: cpu.enter(x), "the moved tree's ENTER")
+    got = timed("the moved tree's ENTER, replayed", lambda: cpu.enter(x))
     check(torch.equal(got, want), "the moved tree's ENTER differs")
     log(f"persistence gates passed: bytes identical after a round trip "
         f"(compressed {len(data[True])}, uncompressed {len(data[False])} "
@@ -1758,9 +1812,11 @@ def unscheduled(tree, gen, label, batch, stree=None):
     EXIT's output must be ENTER's input; REDC and MOD by the tree's own
     tables xnn_s and z0z0_rem_xnn_s. Each timed warm, best of 2, beside
     the scheduled method. With ``stree`` (a ShardedFFTree of the tree) the
-    sharded method runs on the same input too: its shards, concatenated,
-    equal the scheduled output, each shard on its device. Returns the
-    launches of the unscheduled calls."""
+    sharded method runs on the same input too, on the eager loop (each
+    replica's one call would capture a graph it never replays; replicas'
+    replays are held in tests/test_torch_cuda.py): its shards,
+    concatenated, equal the scheduled output, each shard on its device.
+    Returns the launches of the unscheduled calls."""
     S0, S1 = emit.S0, emit.S1
     N, spec = tree.n, tree.spec
     h = N // 2
@@ -1815,7 +1871,8 @@ def unscheduled(tree, gen, label, batch, stree=None):
         best_s = timed_best(lambda: getattr(tree, method)(x, *args))
         shard_note = ""
         if stree is not None:
-            shards = getattr(stree, method)(x, *args)
+            with graphs._eager_loop():  # a replica's one call: no capture
+                shards = getattr(stree, method)(x, *args)
             check(len(shards) == len(stree.mesh)
                   and all(o.device == d and o.shape[0] == batch // len(
                       stree.mesh) for o, d in zip(shards, stree.mesh))
@@ -1852,12 +1909,138 @@ def sharded_by_tables(tree, stree, gen, batch):
             ("REDC by Z1, general modulus", "redc_z1", (ga,)),
             ("MOD, general modulus", "modular_reduce", (ga, gc))):
         want = getattr(tree, method)(x, *args)
-        shards = getattr(stree, method)(x, *args)
+        with graphs._eager_loop():  # a replica's one call: no capture
+            shards = getattr(stree, method)(x, *args)
         check(all(o.device == d for o, d in zip(shards, stree.mesh))
               and torch.equal(torch.cat(shards), want),
               f"{name}: the sharded output differs")
         log(f"{name} sharded over {len(stree.mesh)}, B={batch}: equal to "
             "the unsharded output, each shard on its device")
+
+
+# ----------------------------------------- replay against the eager loop
+
+# phase 8e (phase 3's tree) and 9c (phase 3b's M31 tree): name, method,
+# executor
+REPLAY_CASES = (("ENTER", "enter", "scan"), ("EXIT", "exit", "scan"),
+                ("ENTER", "enter", "unrolled"), ("EXIT", "exit", "unrolled"))
+SECP_REPLAY_CASES = (*REPLAY_CASES, ("DEGREE", "degree", "scan"))
+
+
+def graph_record(tree, method, ex, lanes):
+    """The tree's captured step loop of ``method`` over its n points on
+    executor ``ex`` at ``lanes`` lanes, or None where there is none yet."""
+    sched = tree._schedule(method, tree.n)[0]
+    found = [r for (loop, k, _), r in tree._graphs.graphs.items()
+             if r.pins[0] is sched and loop[0][0] == ex and k == lanes]
+    check(len(found) <= 1, f"{len(found)} graphs of {method} ({ex}) at "
+                           f"{lanes} lanes")
+    return found[0] if found else None
+
+
+def replay_against_eager(tree, gen, label, batch, cases):
+    """Each case of ``cases`` on a fresh batch, in turns in one call:
+    eager (``graphs._eager_loop``), replay, replay, eager, each fenced by
+    synchronizes, every output equal bit for bit to the first (and to a
+    set-up call's, which captures where phases 6–9 have not), polys/s
+    from the mean of each pair, the SM clock and power draw read before
+    and after; then one eager call and one replay under
+    ``torch.profiler``: the host's kernel launches and graph launches, the
+    device operations that ran (a replay's: its graph's nodes) and the
+    busy share. Prints each case's polys/s both ways, the graph's
+    warm-up, capture and instantiate seconds, and the device memory: each
+    call's peak above what was allocated before it, and what the graphs
+    hold between calls (the static state and the device's graph pool).
+    Returns the table's rows."""
+    spec, n = tree.spec, tree.n
+    rows = []
+    for name, method, ex in cases:
+        os.environ.pop("ECFFT_EXECUTOR", None)
+        if ex == "unrolled":
+            os.environ["ECFFT_EXECUTOR"] = "unrolled"
+        try:
+            x = rand_limbs((batch, n), gen, spec)
+
+            def run():
+                return getattr(tree, method)(x)
+            want = None
+            if graph_record(tree, method, ex, batch) is None:
+                want = set_up(run, f"{label} {name} ({ex})")
+            rec = graph_record(tree, method, ex, batch)
+            check(rec is not None, f"{label} {name} ({ex}): no graph")
+            walls, peaks, clocks = [], [], [clock_now()]
+            for mode in ("eager", "replay", "replay", "eager"):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(DEV)
+                torch.cuda.reset_peak_memory_stats(DEV)
+                with (graphs._eager_loop() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    out = run()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated(DEV) - base)
+                want = out if want is None else want
+                check(torch.equal(out, want), f"{label} {name} ({ex}): "
+                      f"the {mode} call differs from the others")
+                del out
+            clocks.append(clock_now())
+            with graphs._eager_loop():
+                te = trace(run, DEV, cpu=False)
+            tr = trace(run, DEV, cpu=False)
+        finally:
+            os.environ.pop("ECFFT_EXECUTOR", None)
+        del x, want
+        # the means of each pair: a drift of the card's clock over the four
+        # calls (it slows under sustained load) weighs on both alike
+        eager = 2 * batch / (walls[0] + walls[3])
+        replay = 2 * batch / (walls[1] + walls[2])
+        held = rec.state.numel() * 4 + graphs.pool_bytes(DEV)
+        busy_e = te["busy_us"] / 1e6 / te["wall_s"]
+        busy_r = tr["busy_us"] / 1e6 / tr["wall_s"]
+        log(f"{label} {name} ({ex}), B={batch}: walls eager, replay, "
+            f"replay, eager {[round(w, 4) for w in walls]} s (SM clock, "
+            f"power before and after: {'; '.join(clocks)}); "
+            f"{eager:.3f} polys/s eager, {replay:.3f} replayed "
+            f"({replay / eager:.3f}x, the means of each pair); equal bit "
+            "for bit")
+        log(f"  eager call: {te['kernel_launches']} host kernel launches, "
+            f"{te['device_ops']} device operations, busy {busy_e:.1%} of "
+            f"{te['wall_s'] * 1e3:.3f} ms; replay: "
+            f"{tr['graph_launches']} graph launch(es), "
+            f"{tr['kernel_launches']} host kernel launches, "
+            f"{tr['device_ops']} device operations (the graph's nodes and "
+            f"the pack and unpack), busy {busy_r:.1%} of "
+            f"{tr['wall_s'] * 1e3:.3f} ms")
+        log(f"  graph: warm-up {rec.warmup_s:.3f} s, capture "
+            f"{rec.capture_s:.3f} s, instantiate {rec.instantiate_s:.3f} s, "
+            f"{rec.replays} replays so far; memory: peak above the "
+            f"allocated eager {max(peaks[0], peaks[3]) / 1e9:.3f} GB, "
+            f"replay {max(peaks[1], peaks[2]) / 1e9:.3f} GB, held by the "
+            f"graphs {held / 1e9:.3f} GB (the static state "
+            f"{rec.state.numel() * 4 / 1e9:.3f}, the device's pool "
+            f"{graphs.pool_bytes(DEV) / 1e9:.3f})")
+        check(tr["graph_launches"] >= 1 and te["graph_launches"] == 0
+              and te["kernel_launches"] > tr["kernel_launches"],
+              f"{label} {name} ({ex}): launches eager "
+              f"{te['kernel_launches']} (graphs {te['graph_launches']}), "
+              f"replay {tr['kernel_launches']} (graphs "
+              f"{tr['graph_launches']})")
+        rows.append((f"{name} ({ex})", eager, replay, te["kernel_launches"],
+                     tr["graph_launches"], tr["device_ops"], busy_e, busy_r,
+                     rec.capture_s, rec.instantiate_s,
+                     max(peaks[0], peaks[3]), max(peaks[1], peaks[2]), held))
+        torch.cuda.empty_cache()
+    log(f"{label}, B={batch} | polys/s eager | replayed | x | host launches "
+        "eager | graph launches | device ops replayed | busy eager | busy "
+        "replayed | capture s | instantiate s | peak GB eager | replay | "
+        "held")
+    for r in rows:
+        log(f"{r[0]} | {r[1]:.3f} | {r[2]:.3f} | {r[2] / r[1]:.3f} | {r[3]} | "
+            f"{r[4]} | {r[5]} | {r[6]:.1%} | {r[7]:.1%} | {r[8]:.3f} | "
+            f"{r[9]:.3f} | {r[10] / 1e9:.3f} | {r[11] / 1e9:.3f} | "
+            f"{r[12] / 1e9:.3f}")
+    return rows
 
 
 def run_module(module, args) -> None:
@@ -2006,6 +2189,7 @@ def host_side(child, want) -> collections.Counter:
             if ex == "unrolled":
                 os.environ["ECFFT_EXECUTOR"] = "unrolled"
             try:
+                setup = set_up(lambda: tree.exit(x), f"{ex} M31 EXIT")
                 torch.cuda.synchronize()
                 reset_counts()
                 out = tree.exit(x)
@@ -2014,8 +2198,9 @@ def host_side(child, want) -> collections.Counter:
             finally:
                 os.environ.pop("ECFFT_EXECUTOR", None)
             check([[int(v) for v in row] for row in tree.decode(out)]
-                  == coeffs, f"{ex} M31 EXIT of the host oracle's "
-                             "evaluations does not give the coefficients")
+                  == coeffs and torch.equal(out, setup),
+                  f"{ex} M31 EXIT of the host oracle's evaluations does not "
+                  "give the coefficients, replayed and eager")
             check(any(got.values()), f"{ex} M31 EXIT launched no kernel")
             log(f"{ex}: EXIT == the coefficients on both lanes; launches "
                 f"{got}")
@@ -2363,6 +2548,9 @@ def main() -> int:
         check(all(new_launches[form][k] > 0
                   for k in ("mulss", "muladd1", "muladd2")),
               f"phase 8d launched no mulss, muladd1 or muladd2 of {form}")
+    with Phase(f"8e replay against the eager loop on phase 3's tree "
+               f"(n = {N}, B = {BATCH}), in turns"):
+        replay_against_eager(tree, gen, FIELD, BATCH, SECP_REPLAY_CASES)
     # phase 15's bench loads this tree instead of building it
     save_tables_npz(tree, os.path.join(bench.CACHE_DIR,
                                        f".bench_tree_{FIELD}_{N}.npz"))
@@ -2370,6 +2558,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     m31_launches = field_path(tree31, nt31, gen, "M31", M31_BATCH, 9)
+    with Phase(f"9c replay against the eager loop on phase 3b's M31 tree "
+               f"(n = {M31_N}, B = {M31_BATCH}), in turns"):
+        replay_against_eager(tree31, gen, "M31", M31_BATCH, REPLAY_CASES)
     del tree31, nt31
     torch.cuda.empty_cache()
 

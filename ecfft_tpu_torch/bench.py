@@ -18,7 +18,8 @@ Prints exactly ONE JSON line on stdout::
 --query-gpu=name,power.limit --format=csv,noheader`` prints them. On
 stderr it logs its set-up: the seconds of each stage (the tree, the native
 baseline, ``prepare``, the first call, the gate) and the peak device memory
-(``torch.cuda.max_memory_allocated``).
+(``torch.cuda.max_memory_allocated``, with the bytes the step loops'
+graph pool holds beside it: ``ops.graphs.pool_bytes``).
 
 Knobs, environment variables read when :func:`main` is called:
 ``ECFFT_BENCH_FIELD`` (secp256k1), ``ECFFT_BENCH_N`` (65536),
@@ -138,6 +139,7 @@ def main() -> dict:
     from ecfft_tpu_torch.fields import device as fd
     from ecfft_tpu_torch.fields.registry import FIELDS
     from ecfft_tpu_torch.native import NativeFFTree
+    from ecfft_tpu_torch.ops import graphs
     from ecfft_tpu_torch.ops.schedule import unrolled_selected
     from ecfft_tpu_torch.serialize_native import (load_tables_npz,
                                                   save_tables_npz)
@@ -257,8 +259,11 @@ def main() -> dict:
         f"1-core {base} polys/s; the reps end at {time.time():.3f} (s since "
         "the epoch)")
     if dev.type == "cuda":
-        log(f"peak device memory: "
-            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+        alloc, pool = (torch.cuda.max_memory_allocated(dev),
+                       graphs.pool_bytes(dev))
+        log(f"peak device memory: {(alloc + pool) / 1e9:.3f} GB "
+            f"({alloc / 1e9:.3f} GB allocated at most, "
+            f"{pool / 1e9:.3f} GB held by the step loops' graph pool)")
     log(f"peak host memory: "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.3f} GB")
 

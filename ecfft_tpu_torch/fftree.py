@@ -37,7 +37,10 @@ or M31's one 32-bit limb) of canonical values: the card (``"cuda"``)
 unless the caller names another. Constructing a tree from tables touches
 no device. With Montgomery residents the pool is converted once, when it
 is built, and each call's state on the way in and out
-(``ops/schedule.py::run_chunks``).
+(``ops/schedule.py::run_chunks``). On a card each schedule's step loop
+is captured as a CUDA graph at its first call and replayed at every
+later one (``ops/graphs.py``); the tree keeps the graphs beside its
+schedules, and they go with it.
 
 ``ECFFT_EXECUTOR=unrolled`` runs the transforms on the unrolled executor
 (``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
@@ -67,6 +70,7 @@ from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec, build_domain, get_spec
 from ecfft_tpu_torch.native import build_tree_native
 from ecfft_tpu_torch.ops import core, emit, step
+from ecfft_tpu_torch.ops.graphs import GraphCache
 from ecfft_tpu_torch.ops.schedule import (build_pool, run_schedule,
                                           schedule_entry, with_analysis)
 from ecfft_tpu_torch.ops.emit import S0, S1
@@ -320,6 +324,8 @@ class FFTree:
         self._pool = None
         self._pool_off = None
         self._scheds: dict = {}
+        # the step loops' CUDA graphs of the schedules above, by key
+        self._graphs = GraphCache()
         # the unscheduled algorithms' tables on the device: ("ext", m) →
         # the size's EXTEND coefficients, (name, m) → a table
         self._dev_cache: dict = {}
@@ -545,8 +551,9 @@ class FFTree:
         """Move the tree to ``device``: the pool and the schedules'
         residual banks (the tables, which feed only the pool, and the
         unrolled analysis, host numpy, stay on the CPU; the unscheduled
-        algorithms' device cache is dropped and refilled there at first
-        use); later batches go on that device."""
+        algorithms' device cache and the step loops' graphs are dropped,
+        and refilled there at first use); later batches go on that
+        device."""
         device = torch.device(device)
         _check_field(self.spec, device)
         self.device = device
@@ -555,6 +562,7 @@ class FFTree:
         for entry in self._scheds.values():
             entry[1] = entry[1].to(device)
         self._dev_cache = {}
+        self._graphs = GraphCache()
         return self
 
     def _schedule(self, alg: str, m: int, moiety: int | None = None):
@@ -596,7 +604,8 @@ class FFTree:
         flat = batch.reshape(-1, m, L)
         out = run_schedule(self.spec, self._pool, sched, bank,
                            (flat, *extras) if extras else flat,
-                           one_pos=one_pos, m_out=m_out, meta=meta)
+                           one_pos=one_pos, m_out=m_out, meta=meta,
+                           cache=self._graphs)
         return out.reshape(*batch.shape[:-2], m_out, L)
 
     def extend(self, evals, moiety: int = S1) -> torch.Tensor:

@@ -24,7 +24,9 @@ state keeps Montgomery residents from the pack to the unpack
 once, when it is built, as ``FFTree`` converts its pool; the JAX package
 converts it once per call. A prime below 2^16 with a fold (97, 64513)
 runs on the "fold1" form. Plans live on the card unless the caller passes
-``device="cpu"``.
+``device="cpu"``; there each transform's step loop is captured as a CUDA
+graph at its first call and replayed after (``ops/graphs.py``), the plan
+keeping the graphs.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec, spec_for_prime
 from ecfft_tpu_torch.ops import emit, step
+from ecfft_tpu_torch.ops.graphs import GraphCache
 from ecfft_tpu_torch.ops.schedule import (run_schedule, schedule_entry,
                                           with_analysis)
 
@@ -94,6 +97,8 @@ class NTTPlan:
         # [schedule, residual bank on the device, unrolled analysis or None]
         self._scheds = {inv: schedule_entry(self._build(inv), self.device)
                         for inv in (False, True)}
+        # the step loops' CUDA graphs of both schedules
+        self._graphs = GraphCache()
 
     @property
     def _fwd(self) -> emit.Schedule:
@@ -149,7 +154,7 @@ class NTTPlan:
         lead = batch.shape[:-2]
         flat = batch.reshape((-1,) + batch.shape[-2:])
         out = run_schedule(self.spec, self.pool, sched, bank, flat,
-                           self.n - 1, self.n, meta)
+                           self.n - 1, self.n, meta, self._graphs)
         return out.reshape(lead + out.shape[-2:])
 
     def ntt(self, coeffs):

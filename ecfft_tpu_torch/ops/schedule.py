@@ -35,6 +35,12 @@ clamps it in the reference (``index_select`` would raise where
 ``ECFFT_EXECUTOR=unrolled`` hands a schedule to the unrolled executor
 (``ops/unrolled.py``), which fuses the butterfly levels instead.
 
+On a card either executor's step loop runs as a CUDA graph, captured at
+the first call of its key and replayed after (``ops/graphs.py``): the
+counterpart of the JAX package's jitted executors. :func:`run_chunks`
+packs each chunk into the graph's static state and unpacks a fresh
+output around the replay. A CPU tensor runs the loop eagerly.
+
 Left out, as plumbing for the TPU: the step-row envelope segmentation,
 the run-split/``lax.switch`` choice with buffer donation, ``lax.map``
 chunking inside segments and the TPU tile-padding preflight. Batch
@@ -52,7 +58,7 @@ from ecfft_tpu_torch.errors import SizeError
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec
 from ecfft_tpu_torch.native import batch_inv_limbs
-from ecfft_tpu_torch.ops import step
+from ecfft_tpu_torch.ops import graphs, step
 from ecfft_tpu_torch.ops.emit import (
     CP_ALO, CP_AHI, CP_C0, CP_C1, CP_DC, CP_DD, CP_DK, CP_KM, CP_M1, CP_M2,
     CP_M3, CP_OFF, CP_S2, CP_SB, CP_SPAN, CP_XX, DOP_FINAL, DOP_LEVEL,
@@ -169,9 +175,10 @@ def one_row(W: int, m: int, one_pos: int):
     return m + i % pad
 
 
-def to_state(batch, W: int, one_pos: int):
+def to_state(batch, W: int, one_pos: int, out=None):
     """(B, m, L) batch → (W, L, B) state with a constant 1 at
-    :func:`one_row`.
+    :func:`one_row`: a new tensor, or ``out`` (a graph's static state)
+    overwritten.
 
     ``batch`` may be a tuple of parts laid one after the other along the
     position axis (the general-modulus REDC/MOD pack [evals ‖ a ‖ c]): the
@@ -179,7 +186,7 @@ def to_state(batch, W: int, one_pos: int):
     that every lane gets."""
     batch, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, m, L = batch.shape
-    x = batch.new_zeros((W, L, B))
+    x = batch.new_zeros((W, L, B)) if out is None else out.zero_()
     x[:m] = batch.permute(1, 2, 0)
     for part in extras:
         x[m:m + part.shape[0]] = part.unsqueeze(-1)
@@ -374,7 +381,10 @@ def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int,
     Fixed: the whole (B, m_out, L) output, and the per-step temporaries
     that do not grow with the batch (coefficient rows, int64 index rows,
     the D-engine's planes and row products), with a margin for the
-    allocator."""
+    allocator. On a card the state is a graph's static buffer and the
+    step temporaries live in the graphs' pool, both held after the call:
+    the same bytes, counted by :func:`_lanes_per_chunk` as taken once
+    held."""
     bsx = max(sched.bs_max, 1)
     per_lane = (sched.W + max(2 * sched.A, m_out, m_in)) * L * 4
     fixed = (B * m_out * L * 4 + 4 * sched.A * L * 4 + 32 * sched.A * 8
@@ -385,13 +395,16 @@ def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int,
 def _lanes_per_chunk(sched: Schedule, L: int, B: int, m_out: int,
                      device, m_in: int = 0) -> int:
     """Batch lanes that fit on the card at once (see :func:`_chunk_bytes`),
-    budgeted from what the card and the caching allocator hold free. On
-    the CPU the batch runs whole."""
+    budgeted from what the card and the caching allocator hold free; the
+    graphs' pool (``graphs.pool_bytes``) is reserved but free to no other
+    allocation, and the graphs' static states are allocated. On the CPU
+    the batch runs whole."""
     if device.type != "cuda":
         return B
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)
-             - torch.cuda.memory_allocated(device))
+             - torch.cuda.memory_allocated(device)
+             - graphs.pool_bytes(device))
     per_lane, fixed = _chunk_bytes(sched, L, B, m_out, m_in)
     lanes = (free - fixed) // per_lane
     if lanes < 1:
@@ -426,14 +439,17 @@ def with_analysis(entry: list) -> list:
 
 
 def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
-                 one_pos: int, m_out: int, meta=None):
+                 one_pos: int, m_out: int, meta=None, cache=None):
     """Execute a schedule: (B, m, L) int32 ``batch`` → (B, m_out, L), the
     first m_out rows of the final state or the rows ``sched.out_perm``
     names. ``batch`` may be a tuple (batch, *extras) with unbatched
     (rows, L) extras (see :func:`to_state`).
 
     ``pool``: (P, L) int32 on the batch's device; ``bank``: the
-    schedule's residual row bank as an int64 tensor on that device.
+    schedule's residual row bank as an int64 tensor on that device;
+    ``cache``: the ``graphs.GraphCache`` that keeps the step loop's
+    graphs on a card (trees and plans keep one beside their schedules;
+    None: a new one, for this call alone).
 
     Dispatch, as in the JAX package: this scan executor is the default;
     ``ECFFT_EXECUTOR=unrolled`` hands the schedule to
@@ -443,10 +459,11 @@ def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
         from ecfft_tpu_torch.ops.unrolled import run_unrolled
 
         return run_unrolled(spec, pool, sched, bank, batch, one_pos, m_out,
-                            meta)
+                            meta, cache=cache)
     return run_chunks(
         spec, sched, batch, one_pos, m_out,
-        lambda x: _run_steps(spec, pool, sched, bank, x))
+        lambda x: _run_steps(spec, pool, sched, bank, x), cache,
+        ("scan",), (pool, bank))
 
 
 def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
@@ -460,7 +477,8 @@ def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
 
 
 def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
-               m_out: int, run_steps):
+               m_out: int, run_steps, cache=None, executor: tuple = ("scan",),
+               pins: tuple = ()):
     """Pack, run (``run_steps(state)``, in place) and unpack ``batch`` in
     as many lane chunks as the device's memory asks for. With Montgomery
     residents (:func:`fields.device.is_mont`) the packed rows go into
@@ -468,24 +486,50 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
     past them) becomes R mod p, and the output rows leave it before the
     unpack: the bits of the JAX package's state, which converts the whole
     state (its other rows are zero, and 0·R = 0). The 1 sits at
-    :func:`one_row`, a pad row behind the packed ones."""
+    :func:`one_row`, a pad row behind the packed ones.
+
+    On a card the step loop of each chunk is a replay of its graph in
+    ``cache`` (captured at the key's first call, ``graphs.GraphCache``),
+    keyed by the schedule, ``executor`` (its name and parameters), what
+    the loop reads besides (``pins``), the chunk's lanes and the device;
+    the chunk is packed into the graph's static state and its output
+    copied out. ``run_steps`` is the loop the graph records."""
     first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, _, L = first.shape
+    dev = first.device
     m_in = first.shape[1] + sum(e.shape[0] for e in extras)
     out = first.new_empty((B, m_out, L))
     perm = (None if sched.out_perm is None else
-            torch.from_numpy(sched.out_perm).to(first.device, torch.int64))
+            torch.from_numpy(sched.out_perm).to(dev, torch.int64))
     mont = fd.is_mont(spec)
-    chunk = _lanes_per_chunk(sched, L, B, m_out, first.device,
-                             m_in if mont else 0)
+
+    def budget():
+        return _lanes_per_chunk(sched, L, B, m_out, dev,
+                                m_in if mont else 0)
+
+    replay = graphs.replays(first)
+    if replay:
+        cache = graphs.GraphCache() if cache is None else cache
+        pins = (sched, *pins)
+        loop = graphs.loop_key(executor, pins)
+        chunk = cache.lanes(loop, B, dev, budget)
+    else:
+        chunk = budget()
     for sl, part in lane_chunks(batch, chunk):
-        x = to_state(part, sched.W, one_pos)
+        x = None
+        if replay:
+            key = (loop, first[sl].shape[0], dev)
+            x = cache.state(key, sched.W, L)
+        x = to_state(part, sched.W, one_pos, x)
         if mont:
             _redc_rows(spec, x, m_in, x[:m_in].clone(), spec.r2_mod_p)
             row = one_row(sched.W, m_in, one_pos)
             if row is not None:
                 x[row] = fd.encode(spec, spec.r_mod_p, x.device)[:, None]
-        run_steps(x)
+        if replay:
+            cache.run(key, x, run_steps, pins)
+        else:
+            run_steps(x)
         if mont:
             src = (x[:m_out].clone() if perm is None
                    else x.index_select(0, perm))

@@ -34,8 +34,11 @@ tensor it runs its plain int64 PyTorch version; each counts its launches
 per form as the step wrappers do (``launches``). The plain versions
 compute the new window from a copy of the old one, then write it.
 
-Left out, as plumbing for the TPU: the jitted segments (``SEG_STEPS``,
-``_SEG_CACHE``, ``ECFFT_UNROLL_DEBUG``), the scoped-VMEM compiler
+On a card the step loop runs as a CUDA graph, captured at the first call
+of its key and replayed after (``ops/graphs.py``), where the JAX package
+compiles runs of steps into jitted segments. Left out, as plumbing for
+the TPU: the segmentation itself (``SEG_STEPS``, ``_SEG_CACHE``,
+``ECFFT_UNROLL_DEBUG``: one graph holds the whole loop), the scoped-VMEM compiler
 parameters, the trace-time index synthesis (the scan executor's
 ``_synth`` serves) and static plane slices (the D-engine's plane gather
 serves), the lane tile ``tb`` and the ``fuse_ok`` test that Mosaic's
@@ -292,17 +295,20 @@ for _w in FUSED_WRAPPERS:
 
 def run_unrolled(spec: FieldSpec, pool, sched: Schedule, bank, batch,
                  one_pos: int, m_out: int, meta: _SchedMeta | None = None,
-                 max_levels: int = MAX_LEVELS):
+                 max_levels: int = MAX_LEVELS, cache=None):
     """Execute a schedule with fused butterfly levels (see the module
     docstring): (B, m, L) int32 ``batch`` → (B, m_out, L), as
-    ``ops.schedule.run_schedule``. ``meta``: the cached
-    :class:`_SchedMeta` of ``sched``, made here when None; runs of in-tile
-    levels longer than ``max_levels`` are split."""
+    ``ops.schedule.run_schedule``, whose ``cache`` keeps the step loop's
+    graphs on a card (the key holds ``max_levels`` and the tile
+    :data:`TW`). ``meta``: the cached :class:`_SchedMeta` of ``sched``,
+    made here when None; runs of in-tile levels longer than
+    ``max_levels`` are split."""
     if meta is None:
         meta = _SchedMeta(sched)
     return sch.run_chunks(
         spec, sched, batch, one_pos, m_out,
-        lambda x: _run_steps(spec, pool, sched, meta, bank, x, max_levels))
+        lambda x: _run_steps(spec, pool, sched, meta, bank, x, max_levels),
+        cache, ("unrolled", max_levels, TW), (pool, bank, meta))
 
 
 def _run_steps(spec: FieldSpec, pool, sched: Schedule, meta: _SchedMeta,

@@ -798,3 +798,136 @@ def test_m31_enter_unscheduled_past_the_folded_grid(card):
         assert [int(v) for v in fd.decode(FIELDS["m31"], evals[b])] == \
             nt.enter([int(v) for v in fd.decode(FIELDS["m31"], x[b])])
     assert torch.equal(tree.exit_unscheduled(evals), x)
+
+
+# ------------------------------------------- the step loops' CUDA graphs
+
+
+def _counts():
+    return {(w.__name__, form): n
+            for w in (*step.STEP_WRAPPERS, *unrolled.FUSED_WRAPPERS)
+            for form, n in w.launches.items()}
+
+
+def _added(before):
+    now = _counts()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("ex", ["scan", "unrolled"])
+@pytest.mark.parametrize("field,n", [("secp256k1", 256), ("m31", 1024),
+                                     ("gp_cios3", 256)])
+def test_replay_matches_eager_and_native(card, monkeypatch, ex, field, n):
+    """ENTER and EXIT, B = 3: the first call (the eager loop and its
+    capture), a replay on other inputs and a replay of the first inputs
+    again equal the eager loop on the card, the CPU and the native
+    engine; the same graph serves both inputs, and each replay adds the
+    eager loop's launches to the counts."""
+    from ecfft_tpu_torch.ops import graphs
+
+    register()
+    if ex == "unrolled":
+        monkeypatch.setenv("ECFFT_EXECUTOR", "unrolled")
+    spec = FIELDS[field]
+    cpu = build_fftree_native(spec, n, device="cpu")
+    gpu = build_fftree_native(spec, n, device=card)
+    nt = NativeFFTree(spec, n)
+    rng = __import__("random").Random(n)
+    for alg in ("enter", "exit"):
+        ins = [fd.encode(spec, [[rng.randrange(spec.p) for _ in range(n)]
+                                for _ in range(3)], "cpu") for _ in range(2)]
+        first = getattr(gpu, alg)(ins[0].to(card))
+        (rec,) = [r for r in gpu._graphs.graphs.values()
+                  if r.pins[0] is gpu._schedule(alg, n)[0]]
+        with graphs._eager_loop():
+            before = _counts()
+            eager = [getattr(gpu, alg)(x.to(card)) for x in ins]
+            eager_launches = _added(before)
+        before = _counts()
+        replayed = [getattr(gpu, alg)(x.to(card)) for x in (*ins, ins[0])]
+        torch.cuda.synchronize()
+        assert _added(before) == {k: 3 * v // 2
+                                  for k, v in eager_launches.items()}
+        assert rec.replays == 3 and len(gpu._graphs.graphs) == (
+            1 if alg == "enter" else 2)
+        assert torch.equal(first, eager[0])
+        for got, want, x in zip(replayed, (*eager, eager[0]),
+                                (*ins, ins[0])):
+            assert torch.equal(got, want)
+            assert torch.equal(got.cpu(), getattr(cpu, alg)(x))
+        for b in range(3):
+            assert [int(v) for v in fd.decode(spec, replayed[1][b])] == \
+                getattr(nt, alg)([int(v) for v in fd.decode(spec,
+                                                             ins[1][b])])
+        ptrs = {t.untyped_storage().data_ptr() for t in replayed}
+        assert len(ptrs) == 3
+        assert rec.state.untyped_storage().data_ptr() not in ptrs
+
+
+def test_replay_in_chunks_and_on_other_trees(card, monkeypatch):
+    """ENTER over a card read as holding two lanes: chunks of 2 and 2,
+    each a graph, replayed; a second tree and a sharded replica on the
+    same card capture their own graphs and agree."""
+    from ecfft_tpu_torch.parallel.sharding import ShardedFFTree, make_mesh
+
+    n, B, gen = 256, 4, torch.Generator().manual_seed(31)
+    coeffs = _limbs(gen, B, n)
+    cpu = build_fftree_native("secp256k1", n, device="cpu")
+    gpu = build_fftree_native("secp256k1", n, device=card).prepare()
+    want = cpu.enter(coeffs)
+    monkeypatch.setattr(schedule, "_lanes_per_chunk", lambda *a: 2)
+    for _ in range(3):
+        assert torch.equal(gpu.enter(coeffs.to(card)).cpu(), want)
+    assert sorted(k[1] for k in gpu._graphs.graphs) == [2]
+    (rec,) = gpu._graphs.graphs.values()
+    assert rec.replays == 5  # two chunks a call, after the first's two
+    monkeypatch.undo()
+    other = build_fftree_native("secp256k1", n, device=card)
+    stree = ShardedFFTree(other, make_mesh(["cuda:0", "cuda:0"]))
+    for _ in range(2):
+        assert torch.equal(other.enter(coeffs.to(card)).cpu(), want)
+        assert torch.equal(torch.cat(stree.enter(coeffs)).cpu(), want)
+    assert all(len(t._graphs.graphs) == 1 for t in (other, *stree.trees))
+
+
+def test_ntt_replays_on_card(card):
+    from ecfft_tpu_torch.ntt import NTTPlan
+
+    plan = NTTPlan(32, p=97, generator=5, device=card)
+    cpu = NTTPlan(32, p=97, generator=5, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(3):
+        x = torch.randint(0, 97, (4, 32, 1), generator=gen,
+                          dtype=torch.int32)
+        ev = plan.ntt(x.to(card))
+        assert torch.equal(ev.cpu(), cpu.ntt(x))
+        assert torch.equal(plan.intt(ev).cpu(), x)
+    assert len(plan._graphs.graphs) == 2
+    assert all(r.replays == 2 for r in plan._graphs.graphs.values())
+
+
+def test_a_capture_that_fails_raises_naming_its_key(card):
+    """A loop that reads a value back to the host cannot be captured: the
+    warm-up runs, the capture raises GraphError naming the loop, and no
+    graph is kept."""
+    from ecfft_tpu_torch.ops import graphs
+
+    sched = build_fftree_native("secp256k1", 16, device="cpu")._schedule(
+        "enter", 16)[0]
+    cache = graphs.GraphCache()
+    key = (graphs.loop_key(("scan",), (sched,)), 2, card)
+    state = torch.zeros((8, 1, 2), dtype=torch.int32, device=card)
+
+    def body(s):
+        s += 1
+        if int(s.sum()) < 0:  # a readback: refused under capture
+            s -= 1
+
+    with pytest.raises(graphs.GraphError, match=r"capture of the scan step "
+                                                r"loop .* at 2 lanes on "
+                                                r"cuda:0 failed"):
+        cache.run(key, state, body, (sched,))
+    assert cache.graphs == {}
+    torch.cuda.synchronize()
+    assert int(state[0, 0, 0]) == 1  # the warm-up ran, the capture did not

@@ -20,16 +20,21 @@ both joined by a comma (``scan,unrolled``); without it
 ``ECFFT_EXECUTOR=unrolled`` in the environment selects the unrolled
 executor, as everywhere in the port. Builds a tree of the field with the
 native engine, then for each executor and method: runs the transform
-once to warm up, times three more warm calls (the best wall, fenced by
-``torch.cuda.synchronize()``, as polys/s), then runs it once more under
-``torch.profiler``. Prints the wall time of the profiled call, the
-device kernels grouped by name with their time, share and launches, the
-device busy share (the union of the kernels' intervals over the wall
-time, so overlapping kernels are not counted twice), the host's launches
-and CPU time, and the peak device memory. Imports nothing of JAX.
+once (the first call on the card: the eager step loop, then its capture
+as a CUDA graph), then for the replayed call and for the eager loop
+(``ops.graphs._eager_loop``) in turn: times three warm calls (the best
+wall, fenced by ``torch.cuda.synchronize()``, as polys/s), then runs one
+more under ``torch.profiler``. Prints for each the wall time of the
+profiled call, the device kernels grouped by name with their time, share
+and launches, the device busy share (the union of the kernels' intervals
+over the wall time, so overlapping kernels are not counted twice), the
+host's kernel launches and graph launches, the device operations that
+ran (a replay's: its graph's nodes), and the peak device memory. Imports
+nothing of JAX.
 """
 
 import collections
+import contextlib
 import os
 import sys
 import time
@@ -41,6 +46,11 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 from ecfft_tpu_torch import build_fftree_native  # noqa: E402
+from ecfft_tpu_torch.ops import graphs  # noqa: E402
+
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel",
+                   "cudaLaunchKernelExC", "cuLaunchKernelEx")
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
 
 def busy_us(intervals) -> float:
@@ -97,6 +107,39 @@ def main() -> int:
     return rc
 
 
+def trace(fn, dev, cpu: bool = True) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, fenced by
+    synchronizes: its wall seconds, the device's records (kernels, copies
+    and fills) with their microseconds by name, the union of their
+    intervals, and the host's kernel launches and graph launches (CUDA
+    runtime records, which the CUDA activity traces; ``cpu`` adds the
+    host's operator records, several a launch). Reads the profiler's raw
+    records (``kineto_results``), which costs a small part of building
+    its event tree at 10^5 launches."""
+    torch.cuda.synchronize(dev)
+    acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    host, spans = collections.Counter(), []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us = e.duration_ns() / 1e3
+            by_name[e.name()][0] += us
+            by_name[e.name()][1] += 1
+            spans.append((e.start_ns() / 1e3, e.start_ns() / 1e3 + us))
+        else:
+            host[e.name()] += 1
+    return {
+        "wall_s": wall, "device_ops": len(spans), "by_name": by_name,
+        "busy_us": busy_us(spans),
+        "kernel_launches": sum(host[k] for k in KERNEL_LAUNCHES),
+        "graph_launches": sum(host[k] for k in GRAPH_LAUNCHES)}
+
+
 def profile_one(tree, alg, ex, x, n, batch, field, limbs, dev) -> int:
     general = alg.startswith("general_")
     method = alg[len("general_"):] if general else alg
@@ -109,49 +152,45 @@ def profile_one(tree, alg, ex, x, n, batch, field, limbs, dev) -> int:
     def run(x):
         return getattr(tree, method)(x, *tables)
 
-    run(x)
+    run(x)  # the first call: the eager loop and its capture
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run(x)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(x)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    launches = sum(1 for e in events if e.name in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    cpu_ms = sum(e.self_cpu_time_total for e in events
-                 if e.device_type == DeviceType.CPU) / 1e3
-    print(f"{alg} {field} n={n} B={batch}, {ex} executor: warm walls "
-          f"{[round(w * 1e3, 3) for w in walls]} ms, best "
-          f"{batch / min(walls):.1f} polys/s; profiled wall "
-          f"{wall * 1e3:.3f} ms on {torch.cuda.get_device_name(0)}")
-    if not kernels:
-        print("the profiler recorded no device kernels")
-        return 1
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.end - e.time_range.start
-        by_name[e.name][1] += 1
-    total = sum(t for t, _ in by_name.values())
-    print(f"{'device ms':>10} {'share':>7} {'launches':>8}  kernel")
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        print(f"{t / 1e3:10.3f} {t / total:7.2%} {c:8d}  {name[:90]}")
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels)
-    print(f"device kernel time {total / 1e3:.3f} ms; busy (union) "
-          f"{busy / 1e3:.3f} ms = {busy / 1e6 / wall:.1%} of the wall")
-    print(f"host: {launches} kernel launches, {cpu_ms:.3f} ms CPU self "
-          f"time; peak device memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
-    return 0
+    rc = 0
+    for mode in ("replay", "eager"):
+        ctx = (graphs._eager_loop if mode == "eager"
+               else contextlib.nullcontext)
+        with ctx():
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(x)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = trace(lambda: run(x), dev)
+        wall = t["wall_s"]
+        print(f"{alg} {field} n={n} B={batch}, {ex} executor, {mode}: warm "
+              f"walls {[round(w * 1e3, 3) for w in walls]} ms, best "
+              f"{batch / min(walls):.1f} polys/s; profiled wall "
+              f"{wall * 1e3:.3f} ms on {torch.cuda.get_device_name(0)}")
+        if not t["device_ops"]:
+            print("the profiler recorded no device operations")
+            rc = 1
+            continue
+        total = sum(us for us, _ in t["by_name"].values())
+        print(f"{'device ms':>10} {'share':>7} {'launches':>8}  kernel")
+        for name, (us, c) in sorted(t["by_name"].items(),
+                                    key=lambda kv: -kv[1][0]):
+            print(f"{us / 1e3:10.3f} {us / total:7.2%} {c:8d}  {name[:90]}")
+        print(f"device time {total / 1e3:.3f} ms; busy (union) "
+              f"{t['busy_us'] / 1e3:.3f} ms = "
+              f"{t['busy_us'] / 1e6 / wall:.1%} of the wall")
+        print(f"host: {t['kernel_launches']} kernel launches, "
+              f"{t['graph_launches']} graph launches, {t['device_ops']} "
+              f"device operations ran; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB "
+              f"allocated, {graphs.pool_bytes(dev) / 1e9:.3f} GB in the "
+              "step loops' graph pool", flush=True)
+    return rc
 
 
 if __name__ == "__main__":
