@@ -34,11 +34,11 @@ seconds; the first failure stops the run with a non-zero exit:
    levels, the cascade) also on inputs that stress the word reduction,
    for secp256k1 and for 2^255 − 19; then each timed at its main shape
    (CUDA events, with the SM clock and power draw read just after) beside
-   its plain version (one run after a warm-up), its bound (bytes or word
+   its plain version (three runs after a warm-up), its bound (bytes or word
    products) and this design's issue bound; then (4b) the nine M31 forms
    likewise (edge values 0, 1, p − 1, p − 2, 2^30, (p − 1)/2, 2^16 and
    seeded random ones at B = 1 and 256, rows outside the window
-   untouched, the square, then the M31 main shapes at B = 2048), each
+   untouched, the square, then the M31 main shapes at B = 1024), each
    timed beside its plain version, its byte bound and the int64 PyTorch
    expression of the same function;
    then (4c) the general prime's forms likewise (edge values 0, 1, 2,
@@ -64,13 +64,14 @@ seconds; the first failure stops the run with a non-zero exit:
 7. the same through the unrolled executor (``ECFFT_EXECUTOR=unrolled``),
    whose EXIT round trip runs the 2-mul generic kernel; its launch counts
    beside the counts its fusion analysis predicts;
-8. the six other algorithms at full width on the same tree, each on both
-   executors: EXTEND and MEXTEND (2^15 points, onto S0 and S1), DEGREE
+8. the six other algorithms at full width on the same tree, B = 128 (the
+   main path's batch halved, for time), each on both executors: EXTEND and MEXTEND (2^15 points, onto S0 and S1), DEGREE
    (n = 2^16, lanes of different known degrees), REDC by Z0 and by Z1 and
    MOD by the tree's own X^(n/2) (n = 2^16), VANISH (2^15 points), and
    REDC and MOD by a modulus table given at run time (n = 2^16 too).
    Each is gated bit for bit against the native engine on lanes 0 and
-   255, the two executors against each other on the whole batch, its
+   127 (the engine's calls on host threads, beside the card's), the two
+   executors against each other on the whole batch, its
    launch counts against the schedule's steps and the fusion analysis,
    and timed warm (the gated replay, fenced by
    ``torch.cuda.synchronize()``);
@@ -90,18 +91,19 @@ seconds; the first failure stops the run with a non-zero exit:
    every size and each ``mats`` plane equal bit for bit to the native
    engine's, each bootstrap's seconds beside the native build's (timed in
    phases 3–3c) and its launches per kernel; (b) on phase 3's tree at
-   B = 256 each ``*_unscheduled`` algorithm (ENTER with EXIT's round
+   B = 128 each ``*_unscheduled`` algorithm (ENTER with EXIT's round
    trip, EXTEND and MEXTEND onto both moieties over 2^15 points, DEGREE on
    lanes of known degrees, REDC by Z0 and Z1 and MOD by the tree's own
    tables, VANISH over 2^15 points) equal on the whole batch to the
    scheduled method on the same input, both timed warm (best of 2), and
    a ``ShardedFFTree`` over two shards of the card running the same
-   inputs on the eager loop (each replica's one call would capture a
-   graph it never replays), plus REDC and MOD by tables given at run
+   inputs (ENTER twice, each replica capturing its graph and replaying
+   it; the others once on the eager loop, since a replica's one call
+   would capture a graph it never replays), plus REDC and MOD by tables given at run
    time: the shards,
    concatenated, equal to the unsharded output, each on its device;
    (c) the unscheduled algorithms likewise on phase 3b's M31 tree at
-   B = 256. Throughout 8d the kernels' plain versions (and the plain
+   B = 128. Throughout 8d the kernels' plain versions (and the plain
    field product) must see no CUDA tensor, and mulss, muladd1 and muladd2
    must launch;
    8e. replay against the eager loop on the same tree: ENTER and EXIT on
@@ -109,11 +111,14 @@ seconds; the first failure stops the run with a non-zero exit:
    one call (eager, replay, replay, eager), every output equal bit for
    bit, with polys/s both ways; one eager call and one replay under
    ``torch.profiler`` (the host's kernel launches beside the replay's
-   graph launches and device operations, each one's busy share), the
+   graph launches and device operations, each one's busy share; the
+   launches of each port kernel in the replay's trace must equal what
+   the graph's capture recorded, and the counts of a replay the eager
+   call's), the
    graph's warm-up, capture and instantiate seconds, and the device
    memory: each call's peak above what was allocated before it, and what
    the graphs hold between calls;
-9. M31: a batch of B = 2048 at n = 2^16 through all eight algorithms on
+9. M31: a batch of B = 1024 at n = 2^16 through all eight algorithms on
    both executors (ENTER with its EXIT round trip, then the others as in
    phase 8), each gated bit for bit against the native engine on lanes 0
    and B − 1 and the executors against each other on the whole batch, its
@@ -122,8 +127,8 @@ seconds; the first failure stops the run with a non-zero exit:
    eager loop as 8e, on the same tree: ENTER and EXIT on both executors;
 10. the general prime, each field as phase 9 on both executors: a 256-bit
    prime of slack 0 without a fold (the CIOS form, 16 limbs) at the full
-   width, n = 2^16, B = 256, all eight algorithms; M61 (the fold form, 4
-   limbs) at n = 2^16, B = 1024, ENTER with its EXIT round trip and
+   width, n = 2^16, B = 128, all eight algorithms; M61 (the fold form, 4
+   limbs) at n = 2^16, B = 512, ENTER with its EXIT round trip and
    VANISH; the STARK prime, 2^256 − 1053 and the CIOS primes of 3 and 13
    limbs at n = 2^10, B = 256, all eight algorithms; every form's nine
    kernels must run;
@@ -157,10 +162,12 @@ seconds; the first failure stops the run with a non-zero exit:
    tree, GF(2^9) at n = 16 (host only): ENTER against naive evaluation
    and the EXIT round trip; (d) Schoof through the native engine: the
    order of y² = x³ + 8x + 81 over M31 (2147489041), and over 2^61 − 1
-   within Hasse's bound with N·P = O on two points; (e) the examples as
+   (counted on a host thread while (e) runs) within Hasse's bound with
+   N·P = O on two points; (e) the examples as
    users run them, each in a process of its own that must exit 0:
    ``python -m ecfft_tpu_torch.examples.interp_eval`` (n = 2^10, batch 8,
-   on the card), ``find_curve 10`` and ``schoof_large 61``;
+   on the card), and beside it the host-only ``find_curve 10`` and
+   ``schoof_large 61``;
 15. the main bench as ``python -m ecfft_tpu_torch.bench`` runs it, called
    in this process at secp256k1, n = 2^16, B = 256, 5 reps, once on the
    default executor and once with ``ECFFT_EXECUTOR=unrolled``, on phase
@@ -179,6 +186,7 @@ seconds; the first failure stops the run with a non-zero exit:
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import io
@@ -226,7 +234,9 @@ L = SPEC.num_limbs
 ED = spec_for_prime(2**255 - 19)  # a second fold-friendly prime, slack 1
 EDGE = [0, 1, P - 1, P - 2, P // 2, 2**16, 2**255 % P, (P - 1) // 2]
 M31 = FIELDS["m31"]
-M31_N, M31_BATCH = 1 << 16, 2048  # (131200, 1, 2048) int32 = 1.07 GB
+M31_N, M31_BATCH = 1 << 16, 1024  # (131200, 1, 1024) int32 = 0.54 GB
+# phases 8 and 8d: the main path's batch halved, for time
+OTHER_BATCH = 128
 M31_EDGE = [0, 1, M31.p - 1, M31.p - 2, 1 << 30, (M31.p - 1) // 2, 1 << 16]
 # the general prime (phases 4c and 10): fields a user registers with
 # register_field after FIND_CURVE (``native.find_curve_parallel`` found
@@ -288,10 +298,11 @@ CURVES = {
     # up to n = 64 on this curve (phase 12)
     "fold1": (64513, 17298, 51821, (48076, 63964), (37303, 46450), 10),
 }
-# each field's path (phase 10): n, B, and what runs on both executors
+# each field's path (phase 10): n, B (at n = 2^16 halved, for time), and
+# what runs on both executors
 # ("all": the eight algorithms; "enter": ENTER with its EXIT round trip
 # and VANISH, whose OP_MUL steps launch mulss)
-PATHS = {"cios16": (1 << 16, 256, "all"), "fold4": (1 << 16, 1024, "enter"),
+PATHS = {"cios16": (1 << 16, 128, "all"), "fold4": (1 << 16, 512, "enter"),
          "stark": (1 << 10, 256, "all"), "band16": (1 << 10, 256, "all"),
          "cios3": (1 << 10, 256, "all"), "cios13": (1 << 10, 256, "all")}
 GSPEC = {label: register_field(f"gp_{label}", *curve)
@@ -390,6 +401,24 @@ def log(*a):
 def check(ok: bool, what: str):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+HOST_THREADS = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+
+
+def native_twin(tree) -> NativeFFTree:
+    """The native engine's tree on ``tree``'s domain (its leaves and
+    rational maps, which the native builder made), without building the
+    domain again: the witness of the gates."""
+    return NativeFFTree(tree.spec, tree.n, tree.f_layers[0], tree.maps)
+
+
+def in_background(fn, *args):
+    """``fn(*args)`` on a host thread, as a future: the native engine's
+    gates (their C++ runs without the GIL) beside the card's work. ``fn``
+    touches no CUDA tensor: a copy from the card on another thread would
+    break a capture under way."""
+    return HOST_THREADS.submit(fn, *args)
 
 
 class Phase:
@@ -968,7 +997,7 @@ def kernels_against_plain(gen, sched, cascade_run, spec=SPEC, batch=BATCH,
                     log(f"{name} at {what}: device time {ms:.4f} ms a "
                         f"launch ({source}), CUDA events over "
                         f"back-to-back launches {events_ms:.4f} ms")
-                plain_ms = cuda_ms(lambda: plain(st), 1)
+                plain_ms = cuda_ms(lambda: plain(st), 3)
                 lib_ms = cuda_ms(lambda: lib(st), 3) if m31 else None
                 b = bound(kind, A, batch, levels[1] if levels else (), spec)
                 log(f"{name} at {what}: kernel {ms:.3f} ms (then {clk}), "
@@ -1253,6 +1282,10 @@ def gate(tree, coeffs, nt_out, nt, label):
     set-up call (the eager loop and its capture), whose answer it must
     equal. Returns (ENTER output, ENTER counts, EXIT counts)."""
     spec, (batch, n) = tree.spec, coeffs.shape[:2]
+    lanes = (0, batch // 2, batch - 1)
+    pending = {bi: in_background(nt.enter, [int(v) for v in
+                                            fd.decode(spec, coeffs[bi])])
+               for bi in lanes if bi not in nt_out}
     setup = set_up(lambda: tree.enter(coeffs), f"{label} ENTER")
     setup_back = set_up(lambda: tree.exit(setup[:1].contiguous()),
                         f"{label} EXIT of poly 0")
@@ -1268,11 +1301,10 @@ def gate(tree, coeffs, nt_out, nt, label):
     check(out.shape == coeffs.shape and out.dtype == torch.int32,
           f"{label} ENTER output shape")
     check(in_range(out, spec), f"{label} ENTER output limbs out of range")
-    for bi in (0, batch // 2, batch - 1):
+    for bi in lanes:
         got = [int(v) for v in fd.decode(spec, out[bi])]
         if bi not in nt_out:
-            nt_out[bi] = nt.enter([int(v) for v in
-                                   fd.decode(spec, coeffs[bi])])
+            nt_out[bi] = pending[bi].result()
         check(got == nt_out[bi],
               f"{label} ENTER does not match the native engine (poly {bi})")
     torch.cuda.synchronize()
@@ -1407,7 +1439,9 @@ def other_algorithms(tree, nt, gen, batch=BATCH, only=None):
         x = rand_limbs((batch, size), gen, spec) if isinstance(size, int) \
             else size
         m = x.shape[1]
-        want = {b: engine(ints(x[b])) for b in (0, batch - 1)}
+        # the native engine's answers, computed beside the card's calls
+        want = {b: in_background(engine, ints(x[b]))
+                for b in (0, batch - 1)}
         outs = {}
         for ex in ("scan", "unrolled"):
             os.environ.pop("ECFFT_EXECUTOR", None)
@@ -1431,8 +1465,8 @@ def other_algorithms(tree, nt, gen, batch=BATCH, only=None):
                                            "differs from the eager loop's")
             for b, w in want.items():
                 got = int(out[b]) if method == "degree" else ints(out[b])
-                check(got == w, f"{name} ({ex}) does not match the native "
-                                f"engine on lane {b}")
+                check(got == w.result(), f"{name} ({ex}) does not match "
+                                         f"the native engine on lane {b}")
             if method == "degree":
                 check(out.tolist() == degs, f"{name} ({ex}): the degrees")
             else:
@@ -1647,8 +1681,9 @@ def persistence(tree, gen, batch=BATCH):
     tree (it builds and writes) and by the npz tree (it must read the
     pool and both schedules: the pool builder and the emitters are taken
     away meanwhile), whose ENTER and EXIT equal the tree's; a tree built
-    on the CPU, prepared there and moved by ``place_on``, whose ENTER
-    equals the tree's. Each step printed with its seconds."""
+    on the CPU, prepared there from the same directory and moved by
+    ``place_on``, whose ENTER equals the tree's. Each step printed with
+    its seconds."""
     import tempfile
 
     from ecfft_tpu_torch import fftree as tfftree
@@ -1707,10 +1742,11 @@ def persistence(tree, gen, batch=BATCH):
         got = timed("the cached npz tree's EXIT, replayed",
                     lambda: t4.exit(want))
         check(torch.equal(got, x), "the cached tree's EXIT differs")
-    del t2, t4, got
-    cpu = timed("a native-built tree on the CPU, prepared there",
-                lambda: build_fftree_native(FIELD, tree.n,
-                                            device="cpu").prepare())
+        del t2, t4, got
+        cpu = timed("a native-built tree on the CPU, prepared there from "
+                    "the cache directory",
+                    lambda: build_fftree_native(FIELD, tree.n, device="cpu")
+                    .prepare(cache_dir=d))
     timed("place_on(cuda)", lambda: cpu.place_on(DEV))
     set_up(lambda: cpu.enter(x), "the moved tree's ENTER")
     got = timed("the moved tree's ENTER, replayed", lambda: cpu.enter(x))
@@ -1812,11 +1848,12 @@ def unscheduled(tree, gen, label, batch, stree=None):
     EXIT's output must be ENTER's input; REDC and MOD by the tree's own
     tables xnn_s and z0z0_rem_xnn_s. Each timed warm, best of 2, beside
     the scheduled method. With ``stree`` (a ShardedFFTree of the tree) the
-    sharded method runs on the same input too, on the eager loop (each
-    replica's one call would capture a graph it never replays; replicas'
-    replays are held in tests/test_torch_cuda.py): its shards,
-    concatenated, equal the scheduled output, each shard on its device.
-    Returns the launches of the unscheduled calls."""
+    sharded method runs on the same input too: ENTER twice, as users run
+    it (each replica captures its graph on its card, then replays it),
+    the others once on the eager loop (a replica's one call would capture
+    a graph it never replays); its shards, concatenated, equal the
+    scheduled output, each shard on its device. Returns the launches of
+    the unscheduled calls."""
     S0, S1 = emit.S0, emit.S1
     N, spec = tree.n, tree.spec
     h = N // 2
@@ -1871,15 +1908,31 @@ def unscheduled(tree, gen, label, batch, stree=None):
         best_s = timed_best(lambda: getattr(tree, method)(x, *args))
         shard_note = ""
         if stree is not None:
-            with graphs._eager_loop():  # a replica's one call: no capture
-                shards = getattr(stree, method)(x, *args)
-            check(len(shards) == len(stree.mesh)
-                  and all(o.device == d and o.shape[0] == batch // len(
-                      stree.mesh) for o, d in zip(shards, stree.mesh))
-                  and torch.equal(torch.cat(shards), want),
-                  f"{label} {name}: the sharded output differs")
+            # ENTER as users run it: each replica captures its graph on
+            # its own card at the first call and replays it at the second
+            replayed = method == "enter"
+            for _ in range(2 if replayed else 1):
+                with (contextlib.nullcontext() if replayed
+                      else graphs._eager_loop()):
+                    shards = getattr(stree, method)(x, *args)
+                check(len(shards) == len(stree.mesh)
+                      and all(o.device == d and o.shape[0] == batch // len(
+                          stree.mesh) for o, d in zip(shards, stree.mesh))
+                      and torch.equal(torch.cat(shards), want),
+                      f"{label} {name}: the sharded output differs")
+                del shards
             shard_note = f"; sharded over {len(stree.mesh)} equal"
-            del shards
+            if replayed:
+                recs = [[r for r in t._graphs.graphs.values()
+                         if r.pins[0] is t._schedule(method, N)[0]]
+                        for t in stree.trees]
+                check(all(len(rs) == 1 and rs[0].replays >= 1
+                          and rs[0].state.device == torch.device(d)
+                          for rs, d in zip(recs, stree.mesh)),
+                      f"{label} {name}: a replica did not capture and "
+                      "replay its graph on its card")
+                shard_note += (", each replica's graph captured on its "
+                               "card and replayed")
         log(f"{label} {name} unscheduled, B={batch}: == scheduled on the "
             f"whole batch{shard_note}; launches "
             f"{ {k: v for k, v in counts.items() if v} } = "
@@ -1925,6 +1978,52 @@ def sharded_by_tables(tree, stree, gen, batch):
 REPLAY_CASES = (("ENTER", "enter", "scan"), ("EXIT", "exit", "scan"),
                 ("ENTER", "enter", "unrolled"), ("EXIT", "exit", "unrolled"))
 SECP_REPLAY_CASES = (*REPLAY_CASES, ("DEGREE", "degree", "scan"))
+
+
+# the kernel function each wrapper launches, as a profiler trace names it
+# (``void (anonymous namespace)::step_kernel<1>(...)``, or
+# ``m31_step_kernel<1>`` in the M31 library; every cascade's name holds
+# "cascade")
+DEVICE_KERNELS = {"aff1s_ip": "step_kernel<0>", "aff1g_ip": "step_kernel<1>",
+                  "aff2g_ip": "step_kernel<2>", "muladd1": "step_kernel<1>",
+                  "muladd2": "step_kernel<2>", "mulss": "step_kernel<3>",
+                  "fused_bf1": "pair_kernel<false>",
+                  "fused_bf2": "pair_kernel<true>",
+                  "fused_cascade": "cascade"}
+
+
+def traced_kernels(t) -> collections.Counter:
+    """The port's kernel runs that a trace (``trace``) holds, by kernel
+    function."""
+    got = collections.Counter()
+    for name, (_, runs) in t["by_name"].items():
+        for fn in set(DEVICE_KERNELS.values()):
+            if fn in name:
+                got[fn] += runs
+    return got
+
+
+def counted_kernels(counts) -> collections.Counter:
+    """Launch counts by wrapper ({name: launches}), summed by the kernel
+    function each wrapper launches."""
+    got = collections.Counter()
+    for k, launches in counts.items():
+        got[DEVICE_KERNELS[k]] += launches
+    return +got
+
+
+def traced(run, spec):
+    """One call of ``run`` under ``torch.profiler`` (``trace``, device
+    records only) with the launch counts set to 0 just before and read
+    just after: (trace, counts). A trace that holds no device record at
+    all (CUPTI now and then hands back none) is taken once more."""
+    for attempt in (1, 2):
+        reset_counts()
+        t = trace(run, DEV, cpu=False)
+        counts = read_counts(spec)
+        if t["device_ops"] or attempt == 2:
+            return t, counts
+        log("the trace holds no device record: taken again")
 
 
 def graph_record(tree, method, ex, lanes):
@@ -1986,8 +2085,8 @@ def replay_against_eager(tree, gen, label, batch, cases):
                 del out
             clocks.append(clock_now())
             with graphs._eager_loop():
-                te = trace(run, DEV, cpu=False)
-            tr = trace(run, DEV, cpu=False)
+                te, counts_e = traced(run, spec)
+            tr, counts_r = traced(run, spec)
         finally:
             os.environ.pop("ECFFT_EXECUTOR", None)
         del x, want
@@ -2026,6 +2125,28 @@ def replay_against_eager(tree, gen, label, batch, cases):
               f"{te['kernel_launches']} (graphs {te['graph_launches']}), "
               f"replay {tr['kernel_launches']} (graphs "
               f"{tr['graph_launches']})")
+        # what the replay ran on the card against what its capture
+        # recorded (no launch of these fields lies outside the graph: no
+        # Montgomery conversion), and the counts of a replay against the
+        # eager call's
+        form = step.kernel_form(spec)
+        recorded = collections.Counter()
+        for w, c in rec.counts:
+            check(set(c) <= {form}, f"{label} {name} ({ex}): the graph "
+                                    f"recorded launches of {set(c)}")
+            recorded[w.__name__] += c[form]
+        ran_r, ran_e = traced_kernels(tr), traced_kernels(te)
+        log(f"  port kernels in the replay's trace {dict(ran_r)}, recorded "
+            f"by its capture {dict(counted_kernels(recorded))}; in the "
+            f"eager call's trace {dict(ran_e)}, counted "
+            f"{dict(counted_kernels(counts_e))}")
+        check(ran_r == counted_kernels(recorded) == counted_kernels(counts_r),
+              f"{label} {name} ({ex}): the replay ran {dict(ran_r)} on the "
+              f"card; its capture recorded "
+              f"{dict(counted_kernels(recorded))}, the counts read "
+              f"{dict(counted_kernels(counts_r))}")
+        check(counts_r == counts_e, f"{label} {name} ({ex}): launches "
+              f"counted under replay {counts_r}, eager {counts_e}")
         rows.append((f"{name} ({ex})", eager, replay, te["kernel_launches"],
                      tr["graph_launches"], tr["device_ops"], busy_e, busy_r,
                      rec.capture_s, rec.instantiate_s,
@@ -2043,20 +2164,37 @@ def replay_against_eager(tree, gen, label, batch, cases):
     return rows
 
 
-def run_module(module, args) -> None:
-    """``python -m ecfft_tpu_torch.<module>`` with ``args`` in a process
-    of its own, as a user runs it; it must exit 0. Prints its output."""
+def start_module(module, args) -> tuple:
+    """``python -m ecfft_tpu_torch.<module>`` with ``args`` started in a
+    process of its own, as a user runs it: (the process, what it runs,
+    its start)."""
     env = {k: v for k, v in os.environ.items() if k != "ECFFT_EXECUTOR"}
-    t0 = time.perf_counter()
-    res = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", f"ecfft_tpu_torch.{module}", *args],
-        capture_output=True, text=True, timeout=400, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
-    log(f"{module} {' '.join(args)}: exit {res.returncode} in "
-        f"{time.perf_counter() - t0:.3f} s")
-    log(res.stderr.strip())
-    log(res.stdout.strip())
-    check(res.returncode == 0, f"{module} {args} failed")
+    return proc, f"{module} {' '.join(args)}", time.perf_counter()
+
+
+def finish_module(started) -> None:
+    """Wait for a process of :func:`start_module` (killed after 400 s);
+    it must exit 0. Prints its output."""
+    proc, what, t0 = started
+    try:
+        out, err = proc.communicate(timeout=400)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    log(f"{what}: exit {proc.returncode} in {time.perf_counter() - t0:.3f} s")
+    log(err.strip())
+    log(out.strip())
+    check(proc.returncode == 0, f"{what} failed")
+
+
+def run_module(module, args) -> None:
+    """:func:`start_module`, then :func:`finish_module`."""
+    finish_module(start_module(module, args))
 
 
 # ------------------------------------------------ the host-side modules
@@ -2218,18 +2356,38 @@ def host_side(child, want) -> collections.Counter:
         check(bt.exit(ev) == cs, "the GF(2^9) EXIT does not round-trip")
         log("GF(2^9), n = 16: ENTER == naive evaluation, EXIT round-trips")
 
-    with Phase("14d Schoof through the native engine: M31 and 2^61 - 1"):
+    with Phase("14d Schoof through the native engine: M31, and 2^61 - 1 "
+               "started on a host thread beside 14e"):
         a, b = SCHOOF_CURVE
+        p = (1 << 61) - 1
+        curve = ShortWeierstrass(a, b, p)
+        t61 = time.perf_counter()
+        count61 = in_background(cardinality_native, curve)
         t0 = time.perf_counter()
         n31 = cardinality_native(ShortWeierstrass(a, b, M31.p))
         log(f"#E(M31) = {n31} in {time.perf_counter() - t0:.3f} s")
         check(n31 == SCHOOF_M31_ORDER, f"#E(M31) = {n31}, not "
                                        f"{SCHOOF_M31_ORDER}")
-        p = (1 << 61) - 1
-        curve = ShortWeierstrass(a, b, p)
-        t0 = time.perf_counter()
-        n61 = cardinality_native(curve)
-        log(f"#E(2^61 - 1) = {n61} in {time.perf_counter() - t0:.3f} s")
+
+    with Phase("14e the examples as users run them, the host-only ones "
+               "beside the one on the card"):
+        host_only = [
+            start_module("examples.find_curve", [str(FIND_CURVE_K)]),
+            start_module("examples.schoof_large", ["61"])]
+        try:
+            run_module("examples.interp_eval", [])
+            for started in host_only:
+                finish_module(started)
+        finally:
+            for proc, _, _ in host_only:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+    with Phase("14d' Schoof over 2^61 - 1, counted beside 14e"):
+        n61 = count61.result()
+        log(f"#E(2^61 - 1) = {n61} {time.perf_counter() - t61:.3f} s after "
+            "its start")
         check(abs(p + 1 - n61) <= 2 * math.isqrt(p) + 1,
               "#E(2^61 - 1) breaks Hasse's bound")
         rng, held = random.Random(7), 0
@@ -2241,11 +2399,6 @@ def host_side(child, want) -> collections.Counter:
                       f"#E(2^61 - 1)·P is not O at x = {x}")
                 held += 1
         log("#E(2^61 - 1): within Hasse's bound, N·P = O on two points")
-
-    with Phase("14e the examples as users run them"):
-        run_module("examples.interp_eval", [])
-        run_module("examples.find_curve", [str(FIND_CURVE_K)])
-        run_module("examples.schoof_large", ["61"])
     return counts
 
 
@@ -2366,7 +2519,7 @@ def main() -> int:
         sched31, _, meta31 = tree31._schedule("enter", M31_N)
         run31 = max(analysis_counts(sched31, meta31)[1],
                     key=lambda r: len(r[1]))
-        nt31 = NativeFFTree("m31", M31_N)
+        nt31 = native_twin(tree31)
     with Phase("3c the general prime: trees, pools, schedules and the "
                "unrolled analysis"):
         gtrees = {}
@@ -2381,7 +2534,7 @@ def main() -> int:
             gsched, _, gmeta = gtree._schedule("enter", n)
             grun = max(analysis_counts(gsched, gmeta)[1],
                        key=lambda r: len(r[1]))
-            gtrees[label] = (gtree, NativeFFTree(GSPEC[label], n), gsched,
+            gtrees[label] = (gtree, native_twin(gtree), gsched,
                              grun)
             spec = GSPEC[label]
             log(f"{label}: p = {spec.p:#x} ({spec.num_limbs} limbs, form "
@@ -2430,7 +2583,7 @@ def main() -> int:
                                   label, small_only=True)
 
     with Phase("5 native single-core ENTER baseline"):
-        nt = NativeFFTree(FIELD, N)
+        nt = native_twin(tree)
         rng = random.Random(1)
         base = []
         for _ in range(3):
@@ -2496,10 +2649,11 @@ def main() -> int:
             f"{un_tput / scan_tput:.3f}")
     os.environ.pop("ECFFT_EXECUTOR")
 
-    with Phase("8 the six other algorithms, each on both executors"):
-        totals, rows = other_algorithms(tree, nt, gen)
+    with Phase(f"8 the six other algorithms, each on both executors "
+               f"(B = {OTHER_BATCH})"):
+        totals, rows = other_algorithms(tree, nt, gen, OTHER_BATCH)
         check(totals["mulss"] > 0, "mulss was not launched")
-        print_table(rows, BATCH)
+        print_table(rows, OTHER_BATCH)
     scan_launches["mulss"] = un_launches["mulss"] = totals["mulss"]
     with Phase("8c persistence on phase 3's tree: serialize, npz tables, "
                "the cache directory and place_on"):
@@ -2528,18 +2682,18 @@ def main() -> int:
                 torch.cuda.empty_cache()
             del ftree
         with Phase(f"8d-b the unscheduled algorithms on phase 3's tree "
-                   f"(n = {N}, B = {BATCH}) against the scheduled ones, "
-                   "and sharded over two shards of one card"):
+                   f"(n = {N}, B = {OTHER_BATCH}) against the scheduled "
+                   "ones, and sharded over two shards of one card"):
             stree = ShardedFFTree(tree, make_mesh([DEV, DEV])).prepare()
             new_launches["fold16"].update(
-                unscheduled(tree, gen, FIELD, BATCH, stree))
-            sharded_by_tables(tree, stree, gen, BATCH)
+                unscheduled(tree, gen, FIELD, OTHER_BATCH, stree))
+            sharded_by_tables(tree, stree, gen, OTHER_BATCH)
             del stree
         with Phase(f"8d-c the unscheduled algorithms on phase 3b's M31 tree "
-                   f"(n = {M31_N}, B = {BATCH}) against the scheduled "
+                   f"(n = {M31_N}, B = {OTHER_BATCH}) against the scheduled "
                    "ones"):
             new_launches["m31"].update(
-                unscheduled(tree31, gen, "M31", BATCH))
+                unscheduled(tree31, gen, "M31", OTHER_BATCH))
     log(f"phase 8d: plain-version calls on CUDA tensors {dict(plain.calls)}"
         f"; launches {({f: dict(c) for f, c in new_launches.items()})}")
     check(not plain.calls, f"a plain version ran on the card in phase 8d: "
@@ -2601,9 +2755,8 @@ def main() -> int:
             os.environ["ECFFT_EXECUTOR"] = "unrolled"
             ftree.prepare()
             os.environ.pop("ECFFT_EXECUTOR")
-        fold1_launches = field_path(ftree, NativeFFTree(GSPEC["fold1"],
-                                                        FOLD1_N),
-                                    gen, "fold1", FOLD1_BATCH, 12)
+        fold1_launches = field_path(ftree, native_twin(ftree), gen, "fold1",
+                                    FOLD1_BATCH, 12)
     finally:
         unrolled.TW = old_tw
         os.environ.pop("ECFFT_EXECUTOR", None)

@@ -13,9 +13,13 @@ such a loop once per key as a CUDA graph and replays it on every later
 call, one graph launch a chunk of lanes.
 
 - **The key**: the schedule, the pool and residual bank its loop reads,
-  the executor with its parameters, the lane count of the chunk and the
-  device. The record of a key holds those objects, so their ids stay
-  unique while it lives.
+  the executor with its parameters, the lanes of the chunk's graph and
+  the device. A graph's lanes are a power of two (:func:`bucket`): a
+  chunk of fewer lanes is packed into the low lanes of its state, and the
+  lanes above them compute on zeros and are cut off at the unpack, so a
+  run of batch sizes up to B captures at most log2(B) + 1 graphs a loop.
+  The record of a key holds those objects, so their ids stay unique while
+  it lives.
 - **The first call on a key** runs the loop eagerly once on the chunk's
   state (the warm-up: it loads each kernel module, which CUDA loads at a
   kernel's first launch, outside the capture; its result is that call's
@@ -31,8 +35,10 @@ call, one graph launch a chunk of lanes.
   memory pool. Replays run in order on the device's current stream, and
   no graph's output lives in the pool, so one graph's temporaries are
   dead when another replays. What the pool holds is counted in the chunk
-  budget (:func:`pool_bytes`), and a batch size keeps the chunking its
-  first call chose (:meth:`GraphCache.lanes`).
+  budget (:func:`pool_bytes`), and the batch sizes of one bucket keep the
+  chunking their first call chose (:meth:`GraphCache.lanes`). The static
+  states of one (W, L) are powers of two of lanes up to a chunk's, so
+  together they hold less than two chunks' states.
 - **Launch counts**: each kernel wrapper counts its launches in Python,
   and a replay runs no Python. A capture records what its body added to
   the counts and takes it back (nothing ran); each replay adds it again.
@@ -75,6 +81,12 @@ def _eager_loop():
         yield
     finally:
         _EAGER = saved
+
+
+def bucket(lanes: int) -> int:
+    """The lanes of the graph that runs a chunk of ``lanes`` lanes: the
+    least power of two at or above it."""
+    return 1 << (lanes - 1).bit_length()
 
 
 def replays(tensor) -> bool:
@@ -228,12 +240,15 @@ class GraphCache:
         self._lanes: dict = {}
 
     def lanes(self, loop_key: tuple, batch: int, device, budget) -> int:
-        """The lanes a chunk of a ``batch``-lane call gets: the budget's
-        (``budget()``) at the first such call, kept for the later ones, so
-        that they replay the graphs the first captured."""
-        k = (loop_key, batch, device)
+        """The lanes a chunk of a ``batch``-lane call gets: a power of two,
+        the most that ``budget(lanes)`` (the lanes of a chunk that fit, up
+        to ``lanes``) allows for :func:`bucket` (``batch``) at the first
+        call of that bucket, kept for the later ones, so that they replay
+        the graphs the first captured."""
+        want = bucket(batch)
+        k = (loop_key, want, device)
         if k not in self._lanes:
-            self._lanes[k] = budget()
+            self._lanes[k] = 1 << (budget(want).bit_length() - 1)
         return self._lanes[k]
 
     def state(self, key: tuple, W: int, L: int):

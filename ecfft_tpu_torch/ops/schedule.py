@@ -177,8 +177,9 @@ def one_row(W: int, m: int, one_pos: int):
 
 def to_state(batch, W: int, one_pos: int, out=None):
     """(B, m, L) batch → (W, L, B) state with a constant 1 at
-    :func:`one_row`: a new tensor, or ``out`` (a graph's static state)
-    overwritten.
+    :func:`one_row`: a new tensor, or ``out`` (a graph's static state, of
+    B or more lanes: the batch fills its low lanes, the others hold zeros
+    and the 1) overwritten.
 
     ``batch`` may be a tuple of parts laid one after the other along the
     position axis (the general-modulus REDC/MOD pack [evals ‖ a ‖ c]): the
@@ -187,7 +188,7 @@ def to_state(batch, W: int, one_pos: int, out=None):
     batch, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, m, L = batch.shape
     x = batch.new_zeros((W, L, B)) if out is None else out.zero_()
-    x[:m] = batch.permute(1, 2, 0)
+    x[:m, :, :B] = batch.permute(1, 2, 0)
     for part in extras:
         x[m:m + part.shape[0]] = part.unsqueeze(-1)
         m += part.shape[0]
@@ -449,7 +450,7 @@ def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
     schedule's residual row bank as an int64 tensor on that device;
     ``cache``: the ``graphs.GraphCache`` that keeps the step loop's
     graphs on a card (trees and plans keep one beside their schedules;
-    None: a new one, for this call alone).
+    None: the eager loop, since no graph would outlive the call).
 
     Dispatch, as in the JAX package: this scan executor is the default;
     ``ECFFT_EXECUTOR=unrolled`` hands the schedule to
@@ -488,12 +489,14 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
     state (its other rows are zero, and 0·R = 0). The 1 sits at
     :func:`one_row`, a pad row behind the packed ones.
 
-    On a card the step loop of each chunk is a replay of its graph in
-    ``cache`` (captured at the key's first call, ``graphs.GraphCache``),
-    keyed by the schedule, ``executor`` (its name and parameters), what
-    the loop reads besides (``pins``), the chunk's lanes and the device;
-    the chunk is packed into the graph's static state and its output
-    copied out. ``run_steps`` is the loop the graph records."""
+    On a card, given a ``cache`` (``graphs.GraphCache``), the step loop
+    of each chunk is a replay of its graph there (captured at the key's
+    first call), keyed by the schedule, ``executor`` (its name and
+    parameters), what the loop reads besides (``pins``), the chunk's
+    lanes rounded up to a power of two (``graphs.bucket``) and the device;
+    the chunk is packed into the low lanes of the graph's static state
+    and its output copied out. ``run_steps`` is the loop the graph
+    records; without a cache it runs eagerly."""
     first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, _, L = first.shape
     dev = first.device
@@ -503,22 +506,21 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
             torch.from_numpy(sched.out_perm).to(dev, torch.int64))
     mont = fd.is_mont(spec)
 
-    def budget():
-        return _lanes_per_chunk(sched, L, B, m_out, dev,
+    def budget(lanes):
+        return _lanes_per_chunk(sched, L, lanes, m_out, dev,
                                 m_in if mont else 0)
 
-    replay = graphs.replays(first)
+    replay = cache is not None and graphs.replays(first)
     if replay:
-        cache = graphs.GraphCache() if cache is None else cache
         pins = (sched, *pins)
         loop = graphs.loop_key(executor, pins)
         chunk = cache.lanes(loop, B, dev, budget)
     else:
-        chunk = budget()
+        chunk = budget(B)
     for sl, part in lane_chunks(batch, chunk):
-        x = None
+        x, lanes = None, first[sl].shape[0]
         if replay:
-            key = (loop, first[sl].shape[0], dev)
+            key = (loop, graphs.bucket(lanes), dev)
             x = cache.state(key, sched.W, L)
         x = to_state(part, sched.W, one_pos, x)
         if mont:
@@ -535,7 +537,7 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
                    else x.index_select(0, perm))
             _redc_rows(spec, x, m_out, src, 1)
             del src
-            out[sl] = from_state(x, m_out)
+            out[sl] = from_state(x, m_out)[:lanes]
         else:
-            out[sl] = from_state(x, m_out, perm)
+            out[sl] = from_state(x, m_out, perm)[:lanes]
     return out

@@ -891,6 +891,27 @@ def test_replay_in_chunks_and_on_other_trees(card, monkeypatch):
     assert all(len(t._graphs.graphs) == 1 for t in (other, *stree.trees))
 
 
+def test_batch_sizes_on_card_share_power_of_two_graphs(card):
+    """ENTER at every B from 1 to 9 on one tree at n = 256, twice: five
+    graphs (1, 2, 4, 8 and 16 lanes) serve the nine sizes, every call
+    equal to the CPU's; their static states hold 31 lanes in all, under
+    two states of 16, and the second round captures nothing."""
+    n, gen = 256, torch.Generator().manual_seed(41)
+    cpu = build_fftree_native("secp256k1", n, device="cpu")
+    gpu = build_fftree_native("secp256k1", n, device=card)
+    for _ in range(2):
+        for B in range(1, 10):
+            coeffs = _limbs(gen, B, n)
+            assert torch.equal(gpu.enter(coeffs.to(card)).cpu(),
+                               cpu.enter(coeffs)), B
+    recs = gpu._graphs.graphs
+    assert sorted(k[1] for k in recs) == [1, 2, 4, 8, 16]
+    assert sum(r.replays for r in recs.values()) == 13
+    states = {id(r.state): r.state for r in recs.values()}
+    W = next(iter(states.values())).shape[0]
+    assert sum(st.numel() * 4 for st in states.values()) == W * 16 * 4 * 31
+
+
 def test_ntt_replays_on_card(card):
     from ecfft_tpu_torch.ntt import NTTPlan
 

@@ -281,6 +281,40 @@ def test_the_eager_loop_bypasses_the_graphs(card):
     assert len(card["captures"]) == 1
 
 
+def test_batch_sizes_share_power_of_two_graphs(card):
+    """ENTER at every batch size from 1 to 8 on one tree: the chunks pad
+    to 1, 2, 4 and 8 lanes, so four graphs serve the eight sizes, and
+    their static states hold 15 lanes in all (under two states of 8).
+    Every call, the padded ones among them, equals the native engine,
+    and a second round replays without a capture."""
+    t, nt = tree(), native("secp256k1")
+    for rnd in range(2):
+        for batch in range(1, 9):
+            vals = values("secp256k1", 40 + batch, batch)
+            got = t.enter(encode("secp256k1", vals))
+            assert ints("secp256k1", got) == [nt.enter(v) for v in vals], \
+                (rnd, batch)
+        assert len(card["captures"]) == 4
+    assert card["replays"] == 12
+    assert sorted(k[1] for k in t._graphs.graphs) == [1, 2, 4, 8]
+    states = {id(r.state): r.state for r in t._graphs.graphs.values()}
+    W = next(iter(states.values())).shape[0]
+    held = sum(st.numel() * 4 for st in states.values())
+    assert held == W * 16 * 4 * 15 < 2 * W * 16 * 4 * 8
+
+
+def test_no_cache_runs_the_eager_loop(card):
+    """run_schedule without a cache on a tensor that replays: the eager
+    loop, no capture (no graph would outlive the call)."""
+    t, nt = tree(), native("secp256k1")
+    sched, bank, _ = t._schedule("enter", N)
+    vals = values("secp256k1", 52)
+    got = tsch.run_schedule(t.spec, t._pool, sched, bank,
+                            encode("secp256k1", vals), 2 * N, N)
+    assert ints("secp256k1", got) == [nt.enter(v) for v in vals]
+    assert card["captures"] == [] and card["replays"] == 0
+
+
 # ---------------------------------------------------- state and outputs
 
 
@@ -304,8 +338,9 @@ def test_outputs_are_fresh_tensors(card):
 
 
 def test_static_states_are_shared_by_shape_and_freed_with_the_graphs(card):
-    """ENTER and EXIT (one W) at B = 3 share one static state; B = 2 has
-    its own; both go when the tree's graphs go."""
+    """ENTER and EXIT (one W) at B = 3 share one static state of 4 lanes
+    (the power of two above 3); B = 2 has its own; both go when the
+    tree's graphs go."""
     t = tree()
     x = encode("secp256k1", values("secp256k1", 14))
     t.exit(t.enter(x))
@@ -315,9 +350,9 @@ def test_static_states_are_shared_by_shape_and_freed_with_the_graphs(card):
     by_lanes = {}
     for r in recs:
         by_lanes.setdefault(r.state.shape[2], set()).add(id(r.state))
-    assert {k: len(v) for k, v in by_lanes.items()} == {3: 1, 2: 1}
+    assert {k: len(v) for k, v in by_lanes.items()} == {4: 1, 2: 1}
     W = recs[0].state.shape[0]
-    keys = [(W, 16, lanes, torch.device("cpu")) for lanes in (3, 2)]
+    keys = [(W, 16, lanes, torch.device("cpu")) for lanes in (4, 2)]
     assert all(k in graphs._STATES for k in keys)
     del t, recs, r
     gc.collect()
@@ -374,7 +409,7 @@ def test_a_failed_capture_raises_naming_the_key(card, monkeypatch):
     x = encode("secp256k1", values("secp256k1", 15))
     for _ in range(2):
         with pytest.raises(graphs.GraphError,
-                           match=r"capture of the scan step loop .* at 3 "
+                           match=r"capture of the scan step loop .* at 4 "
                                  r"lanes on cpu failed: operation not"):
             t.enter(x)
     assert t._graphs.graphs == {}

@@ -29,8 +29,10 @@ profiled call, the device kernels grouped by name with their time, share
 and launches, the device busy share (the union of the kernels' intervals
 over the wall time, so overlapping kernels are not counted twice), the
 host's kernel launches and graph launches, the device operations that
-ran (a replay's: its graph's nodes), and the peak device memory. Imports
-nothing of JAX.
+ran (a replay's: its graph's nodes), the peak device memory (the input
+and the first call's output, held for the comparison, included), and
+whether the last warm call's output equals the first call's bit for bit
+(exit 1 where it does not). Imports nothing of JAX.
 """
 
 import collections
@@ -152,7 +154,7 @@ def profile_one(tree, alg, ex, x, n, batch, field, limbs, dev) -> int:
     def run(x):
         return getattr(tree, method)(x, *tables)
 
-    run(x)  # the first call: the eager loop and its capture
+    first = run(x)  # the first call: the eager loop and its capture
     torch.cuda.synchronize()
     rc = 0
     for mode in ("replay", "eager"):
@@ -162,16 +164,22 @@ def profile_one(tree, alg, ex, x, n, batch, field, limbs, dev) -> int:
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                run(x)
+                out = run(x)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
+            same = torch.equal(out, first)
+            del out
             torch.cuda.reset_peak_memory_stats(dev)
             t = trace(lambda: run(x), dev)
         wall = t["wall_s"]
         print(f"{alg} {field} n={n} B={batch}, {ex} executor, {mode}: warm "
               f"walls {[round(w * 1e3, 3) for w in walls]} ms, best "
               f"{batch / min(walls):.1f} polys/s; profiled wall "
-              f"{wall * 1e3:.3f} ms on {torch.cuda.get_device_name(0)}")
+              f"{wall * 1e3:.3f} ms on {torch.cuda.get_device_name(0)}; "
+              f"output {'==' if same else 'DIFFERS from'} the first "
+              "call's (the eager loop's)")
+        if not same:
+            rc = 1
         if not t["device_ops"]:
             print("the profiler recorded no device operations")
             rc = 1
