@@ -74,6 +74,7 @@ from ecfft_tpu_torch.ops.graphs import GraphCache
 from ecfft_tpu_torch.ops.schedule import (build_pool, run_schedule,
                                           schedule_entry, with_analysis)
 from ecfft_tpu_torch.ops.emit import S0, S1
+from ecfft_tpu_torch.utils import profiling
 
 # algorithm → emitter(pool offsets, prime, size, moiety)
 _EMITTERS = {
@@ -591,7 +592,8 @@ class FFTree:
         """Run ``alg``'s schedule on a (..., m, L) batch, on a subtree of
         ``tree``·m points; returns (..., m_out, L). ``extras`` are
         unbatched (m, L) tables packed after the batch along the position
-        axis."""
+        axis. The call is a span (``ecfft.call``) and an entry of the call
+        record (``utils.profiling``)."""
         m, L = batch.shape[-2], self.spec.num_limbs
         self._size_check(m * tree)
         self._check_limbs(batch, "the batch")
@@ -602,10 +604,11 @@ class FFTree:
                                  f"{tuple(e.shape)}")
         sched, bank, meta = self._schedule(alg, m, moiety)
         flat = batch.reshape(-1, m, L)
-        out = run_schedule(self.spec, self._pool, sched, bank,
-                           (flat, *extras) if extras else flat,
-                           one_pos=one_pos, m_out=m_out, meta=meta,
-                           cache=self._graphs)
+        with profiling.call(alg, m, flat):
+            out = run_schedule(self.spec, self._pool, sched, bank,
+                               (flat, *extras) if extras else flat,
+                               one_pos=one_pos, m_out=m_out, meta=meta,
+                               cache=self._graphs)
         return out.reshape(*batch.shape[:-2], m_out, L)
 
     def extend(self, evals, moiety: int = S1) -> torch.Tensor:

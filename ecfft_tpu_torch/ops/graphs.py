@@ -40,8 +40,12 @@ call, one graph launch a chunk of lanes.
   states of one (W, L) are powers of two of lanes up to a chunk's, so
   together they hold less than two chunks' states.
 - **Launch counts**: each kernel wrapper counts its launches in Python,
-  and a replay runs no Python. A capture records what its body added to
-  the counts and takes it back (nothing ran); each replay adds it again.
+  by form (``launches``) and by form, rows and lanes (``shapes``), and a
+  replay runs no Python. A capture records what its body added to the
+  counts and takes it back (nothing ran); each replay adds it again.
+- **Spans** (``utils.profiling.span``): ``ecfft.replay`` around a
+  replay's graph launch, ``ecfft.warmup`` and ``ecfft.capture`` around a
+  first call's two parts.
 - A CPU tensor runs the eager loop and never reaches this module. A
   failed capture or replay raises :class:`GraphError` naming its key;
   nothing falls back to the eager loop. A private entry,
@@ -63,6 +67,7 @@ import weakref
 import torch
 
 from ecfft_tpu_torch.errors import EcfftError
+from ecfft_tpu_torch.utils.profiling import span
 
 _EAGER = False  # set by _eager_loop()
 
@@ -158,19 +163,33 @@ def _counted() -> tuple:
 
 
 def _counts_now() -> list:
-    return [(w, collections.Counter(w.launches)) for w in _counted()]
+    return [(w, collections.Counter(w.launches),
+             collections.Counter(w.shapes)) for w in _counted()]
 
 
-def _take_back(before: list) -> list:
-    """Restore the counts of ``before`` and return what was added since,
-    as [(wrapper, Counter)]."""
-    added = []
-    for w, old in before:
+def _added(before: list) -> tuple:
+    """What was counted since ``before``: ([(wrapper, Counter of launches
+    by form)], [(wrapper, Counter of launches by (form, rows, lanes))])."""
+    launches, shapes = [], []
+    for w, old, old_shapes in before:
         new = w.launches - old
         if new:
-            added.append((w, new))
+            launches.append((w, new))
+        new = w.shapes - old_shapes
+        if new:
+            shapes.append((w, new))
+    return launches, shapes
+
+
+def _take_back(before: list) -> tuple:
+    """Restore the counts of ``before`` and return what was added since
+    (:func:`_added`)."""
+    added = _added(before)
+    for w, old, old_shapes in before:
         w.launches.clear()
         w.launches.update(old)
+        w.shapes.clear()
+        w.shapes.update(old_shapes)
     return added
 
 
@@ -215,16 +234,17 @@ def _replay(device, graph) -> None:
 
 class Captured:
     """One captured step loop: its graph, the static state it reads and
-    writes, what it pins, the launches one replay makes, and its set-up
-    seconds."""
+    writes, what it pins, the launches one replay makes (by form, and by
+    form, rows and lanes), and its set-up seconds."""
 
-    __slots__ = ("graph", "state", "pins", "counts", "warmup_s",
+    __slots__ = ("graph", "state", "pins", "counts", "shapes", "warmup_s",
                  "capture_s", "instantiate_s", "replays", "__weakref__")
 
-    def __init__(self, graph, state, pins, counts, warmup_s, capture_s,
-                 instantiate_s):
+    def __init__(self, graph, state, pins, counts, shapes, warmup_s,
+                 capture_s, instantiate_s):
         self.graph, self.state, self.pins = graph, state, pins
         self.counts = counts  # [(wrapper, Counter of launches by form)]
+        self.shapes = shapes  # [(wrapper, Counter by (form, rows, lanes))]
         self.warmup_s, self.capture_s = warmup_s, capture_s
         self.instantiate_s = instantiate_s
         self.replays = 0
@@ -259,10 +279,11 @@ class GraphCache:
         return (rec.state if rec is not None
                 else static_state(W, L, lanes, device))
 
-    def run(self, key: tuple, state, body, pins: tuple) -> None:
+    def run(self, key: tuple, state, body, pins: tuple) -> Captured:
         """Run the step loop ``body`` on ``state`` in place: a replay of
         the key's graph, or at the first call the warm-up and the
-        capture. ``pins``: the schedule first, then what else the loop
+        capture; returns the key's record (``replays`` 0 after the
+        capture). ``pins``: the schedule first, then what else the loop
         reads (the key holds their ids). Raises :class:`GraphError`
         naming the key where either fails."""
         device = state.device
@@ -272,32 +293,38 @@ class GraphCache:
                 raise GraphError(f"{describe(key, pins[0])}: its graph "
                                  "reads another state buffer")
             try:
-                _replay(device, rec.graph)
+                with span("ecfft.replay"):
+                    _replay(device, rec.graph)
             except Exception as e:
                 raise GraphError(f"replay of {describe(key, pins[0])} "
                                  f"failed: {e}") from e
             for w, c in rec.counts:
                 w.launches.update(c)
+            for w, c in rec.shapes:
+                w.shapes.update(c)
             rec.replays += 1
-            return
+            return rec
         t0 = time.perf_counter()
-        body(state)  # the warm-up: this call's answer
+        with span("ecfft.warmup"):
+            body(state)  # the warm-up: this call's answer
         warmup_s = time.perf_counter() - t0
         pool = _pool(device)
         before = _counts_now()
         try:
-            graph, capture_s, inst_s, grown = _capture(device, pool, body,
-                                                        state)
+            with span("ecfft.capture"):
+                graph, capture_s, inst_s, grown = _capture(device, pool, body,
+                                                            state)
         except Exception as e:
             raise GraphError(f"capture of {describe(key, pins[0])} "
                              f"failed: {e}") from e
         finally:
-            counts = _take_back(before)
-        rec = Captured(graph, state, pins, counts, warmup_s, capture_s,
-                       inst_s)
+            counts, shapes = _take_back(before)
+        rec = Captured(graph, state, pins, counts, shapes, warmup_s,
+                       capture_s, inst_s)
         pool.bytes += grown
         pool.live.add(rec)
         self.graphs[key] = rec
+        return rec
 
 
 def loop_key(executor: tuple, pins: tuple) -> tuple:

@@ -50,6 +50,7 @@ chunking stays, budgeted from ``torch.cuda.mem_get_info``.
 from __future__ import annotations
 
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -65,6 +66,7 @@ from ecfft_tpu_torch.ops.emit import (
     DOP_LEVEL0, DOP_NONE, DP_DOP, DP_HALF, DP_HM, DP_MP0, DP_MP1, DP_MS0,
     DP_MS1, DP_MSI0, DP_MSI1, DP_SHALF, OP_AFF1, OP_AFF1_C, OP_AFF1S,
     OP_AFF1S_C, OP_AFFINE, OP_AFFINE_C, OP_CMPSEL, OP_MUL, Schedule, _ilog2)
+from ecfft_tpu_torch.utils import profiling
 
 # ----------------------------------------------------------------- pool
 
@@ -477,6 +479,30 @@ def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
     step.aff1s_ip(spec, C.contiguous(), x, src, 0)
 
 
+def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins) -> None:
+    """Run a chunk's step loop on its state ``x`` in place: the replay of
+    its graph under ``key`` in ``cache`` (or the warm-up and the capture),
+    or without a key the eager loop (span ``ecfft.steps``). Where a call
+    record ``call`` is open, with an event before and after, and the chunk
+    noted in it."""
+    if call is not None:
+        call.mark()
+    if key is not None:
+        rec = cache.run(key, x, run_steps, pins)
+        how = "replay" if rec.replays else "capture"
+        graph, shapes = weakref.ref(rec), rec.shapes
+    else:
+        before = graphs._counts_now() if call is not None else None
+        with profiling.span("ecfft.steps"):
+            run_steps(x)
+        how, graph = "steps", None
+        shapes = None if call is None else graphs._added(before)[1]
+    if call is not None:
+        call.mark()
+        call.chunks.append(profiling.Chunk(lanes, x.shape[2], how, graph,
+                                           shapes))
+
+
 def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
                m_out: int, run_steps, cache=None, executor: tuple = ("scan",),
                pins: tuple = ()):
@@ -496,7 +522,9 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
     lanes rounded up to a power of two (``graphs.bucket``) and the device;
     the chunk is packed into the low lanes of the graph's static state
     and its output copied out. ``run_steps`` is the loop the graph
-    records; without a cache it runs eagerly."""
+    records; without a cache it runs eagerly. Each chunk's phases are
+    spans (``utils.profiling``), and the chunk is noted in the open call
+    record."""
     first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, _, L = first.shape
     dev = first.device
@@ -517,27 +545,30 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
         chunk = cache.lanes(loop, B, dev, budget)
     else:
         chunk = budget(B)
+    call = profiling.current()
     for sl, part in lane_chunks(batch, chunk):
-        x, lanes = None, first[sl].shape[0]
-        if replay:
-            key = (loop, graphs.bucket(lanes), dev)
-            x = cache.state(key, sched.W, L)
-        x = to_state(part, sched.W, one_pos, x)
-        if mont:
-            _redc_rows(spec, x, m_in, x[:m_in].clone(), spec.r2_mod_p)
-            row = one_row(sched.W, m_in, one_pos)
-            if row is not None:
-                x[row] = fd.encode(spec, spec.r_mod_p, x.device)[:, None]
-        if replay:
-            cache.run(key, x, run_steps, pins)
-        else:
-            run_steps(x)
-        if mont:
-            src = (x[:m_out].clone() if perm is None
-                   else x.index_select(0, perm))
-            _redc_rows(spec, x, m_out, src, 1)
-            del src
-            out[sl] = from_state(x, m_out)[:lanes]
-        else:
-            out[sl] = from_state(x, m_out, perm)[:lanes]
+        with profiling.span("ecfft.chunk"):
+            x, key, lanes = None, None, first[sl].shape[0]
+            with profiling.span("ecfft.pack"):
+                if replay:
+                    key = (loop, graphs.bucket(lanes), dev)
+                    x = cache.state(key, sched.W, L)
+                x = to_state(part, sched.W, one_pos, x)
+            if mont:
+                with profiling.span("ecfft.to_mont"):
+                    _redc_rows(spec, x, m_in, x[:m_in].clone(),
+                               spec.r2_mod_p)
+                    row = one_row(sched.W, m_in, one_pos)
+                    if row is not None:
+                        x[row] = fd.encode(spec, spec.r_mod_p,
+                                           x.device)[:, None]
+            _chunk_loop(call, x, lanes, run_steps, cache, key, pins)
+            if mont:
+                with profiling.span("ecfft.from_mont"):
+                    src = (x[:m_out].clone() if perm is None
+                           else x.index_select(0, perm))
+                    _redc_rows(spec, x, m_out, src, 1)
+                    del src
+            with profiling.span("ecfft.unpack"):
+                out[sl] = from_state(x, m_out, None if mont else perm)[:lanes]
     return out

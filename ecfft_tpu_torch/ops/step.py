@@ -36,7 +36,8 @@ form's library is built at its first use (``ops/_build.py``). A CPU tensor
 goes to the plain PyTorch version beside it (:func:`_muladd1_cols`,
 :func:`_muladd2_cols`, :func:`_mulss_cols`), which mirrors the JAX
 package's XLA step in int64. Each wrapper counts its kernel launches per
-form in its ``launches`` Counter; the plain path does not count.
+form in its ``launches`` Counter, and per form, rows and lanes in its
+``shapes`` Counter; the plain path does not count.
 
 For the in-place steps x1 and x2 must be buffers of their own, never
 views of the state: the in-place write is race-free only because every
@@ -56,6 +57,7 @@ import torch
 
 from ecfft_tpu_torch.fields import device as fd
 from ecfft_tpu_torch.fields.registry import FieldSpec
+from ecfft_tpu_torch.utils import profiling
 
 MAX_LIMBS = 16  # the word forms' largest limb count (p < 2^256)
 MAX_WORDS = 8  # the same element in 32-bit words (csrc/word_arith.cuh)
@@ -125,6 +127,7 @@ def load_kernels(form: str = "fold16") -> ctypes.CDLL:
     if form not in _libs:
         from ecfft_tpu_torch.ops._build import kernel_library
 
+        profiling.loaded()
         so = ctypes.CDLL(kernel_library(form))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, (n_ptrs, n_ints) in _SIGNATURES.items():
@@ -222,9 +225,13 @@ def launch(name: str, spec: FieldSpec, device, *args) -> None:
                            f"{lib.ecfft_error_string(err)}")
 
 
-def count(wrapper, spec: FieldSpec) -> None:
-    """One launch more of ``wrapper``'s kernel, in the count of its form."""
-    wrapper.launches[kernel_form(spec)] += 1
+def count(wrapper, spec: FieldSpec, rows: int, lanes: int) -> None:
+    """One launch more of ``wrapper``'s kernel, in the count of its form
+    (``launches``) and in that of its form over a window of ``rows`` rows
+    and ``lanes`` lanes (``shapes``)."""
+    form = kernel_form(spec)
+    wrapper.launches[form] += 1
+    wrapper.shapes[(form, rows, lanes)] += 1
 
 
 # -------------------------------------------------------------- wrappers
@@ -288,7 +295,7 @@ def aff1s_ip(spec: FieldSpec, C, state, x2, start: int) -> None:
     if state.is_cuda:
         launch("ecfft_aff1s_ip", spec, state.device, C, x2, state, start,
                A, state.shape[2])
-        count(aff1s_ip, spec)
+        count(aff1s_ip, spec, A, state.shape[2])
         return
     win = state[start:start + A]
     win.copy_(_muladd1_cols(spec, C.unsqueeze(-1), win, x2))
@@ -300,7 +307,7 @@ def aff1g_ip(spec: FieldSpec, C, state, x1, x2, start: int) -> None:
     if state.is_cuda:
         launch("ecfft_aff1g_ip", spec, state.device, C, x1, x2, state,
                start, A, state.shape[2])
-        count(aff1g_ip, spec)
+        count(aff1g_ip, spec, A, state.shape[2])
         return
     state[start:start + A] = _muladd1_cols(spec, C.unsqueeze(-1), x1, x2)
 
@@ -311,7 +318,7 @@ def aff2g_ip(spec: FieldSpec, A_, B_, state, x1, x2, start: int) -> None:
     if state.is_cuda:
         launch("ecfft_aff2g_ip", spec, state.device, A_, B_, x1, x2, state,
                start, A, state.shape[2])
-        count(aff2g_ip, spec)
+        count(aff2g_ip, spec, A, state.shape[2])
         return
     state[start:start + A] = _muladd2_cols(spec, A_.unsqueeze(-1), x1,
                                            B_.unsqueeze(-1), x2)
@@ -343,7 +350,7 @@ def muladd1(spec: FieldSpec, C, x1, x2, out, start: int) -> None:
     if out.is_cuda:
         launch("ecfft_muladd1", spec, out.device, C, x1, x2, out, start, A,
                out.shape[2])
-        count(muladd1, spec)
+        count(muladd1, spec, A, out.shape[2])
         return
     out[start:start + A] = _muladd1_cols(spec, C.unsqueeze(-1), x1, x2)
 
@@ -354,7 +361,7 @@ def muladd2(spec: FieldSpec, A_, B_, x1, x2, out, start: int) -> None:
     if out.is_cuda:
         launch("ecfft_muladd2", spec, out.device, A_, B_, x1, x2, out, start,
                A, out.shape[2])
-        count(muladd2, spec)
+        count(muladd2, spec, A, out.shape[2])
         return
     out[start:start + A] = _muladd2_cols(spec, A_.unsqueeze(-1), x1,
                                          B_.unsqueeze(-1), x2)
@@ -376,7 +383,7 @@ def mulss(spec: FieldSpec, x1, x2, out, start: int) -> None:
     if out.is_cuda:
         launch("ecfft_mulss", spec, out.device, x1, x2, out, start, A,
                out.shape[2])
-        count(mulss, spec)
+        count(mulss, spec, A, out.shape[2])
         return
     out[start:start + A] = _mulss_cols(spec, x1, x2)
 
@@ -384,6 +391,7 @@ def mulss(spec: FieldSpec, x1, x2, out, start: int) -> None:
 STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2, mulss)
 for _w in STEP_WRAPPERS:
     _w.launches = collections.Counter()
+    _w.shapes = collections.Counter()
 
 
 def mul_rows(spec: FieldSpec, a, b):

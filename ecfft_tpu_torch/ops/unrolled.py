@@ -229,7 +229,7 @@ def fused_bf1(spec: FieldSpec, state, cwin, start: int, half: int) -> None:
     if state.is_cuda:
         step.launch("ecfft_fused_bf1", spec, state.device, cwin, state,
                     start, half, A, state.shape[2])
-        step.count(fused_bf1, spec)
+        step.count(fused_bf1, spec, A, state.shape[2])
         return
     _pair_plain(spec, state, None, cwin, start, half)
 
@@ -242,7 +242,7 @@ def fused_bf2(spec: FieldSpec, state, awin, bwin, start: int,
     if state.is_cuda:
         step.launch("ecfft_fused_bf2", spec, state.device, awin, bwin, state,
                     start, half, A, state.shape[2])
-        step.count(fused_bf2, spec)
+        step.count(fused_bf2, spec, A, state.shape[2])
         return
     _pair_plain(spec, state, awin, bwin, start, half)
 
@@ -280,7 +280,7 @@ def fused_cascade(spec: FieldSpec, state, cwins, awins, start: int,
         step.launch("ecfft_fused_cascade", spec, state.device,
                     ctypes.byref(lv), cwins, awins, state, start, TW, A,
                     state.shape[2])
-        step.count(fused_cascade, spec)
+        step.count(fused_cascade, spec, A, state.shape[2])
         return
     _cascade_plain(spec, state, cwins, awins, start, halves, kinds)
 
@@ -288,6 +288,7 @@ def fused_cascade(spec: FieldSpec, state, cwins, awins, start: int,
 FUSED_WRAPPERS = (fused_bf1, fused_bf2, fused_cascade)
 for _w in FUSED_WRAPPERS:
     _w.launches = collections.Counter()
+    _w.shapes = collections.Counter()
 
 
 # --------------------------------------------------------------- executor

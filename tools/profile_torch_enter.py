@@ -115,9 +115,11 @@ def trace(fn, dev, cpu: bool = True) -> dict:
     and fills) with their microseconds by name, the union of their
     intervals, and the host's kernel launches and graph launches (CUDA
     runtime records, which the CUDA activity traces; ``cpu`` adds the
-    host's operator records, several a launch). Reads the profiler's raw
-    records (``kineto_results``), which costs a small part of building
-    its event tree at 10^5 launches."""
+    host's operator records, several a launch). The program's spans
+    (``record_function``, which the profiler also lays over the device's
+    records) are left out. Reads the profiler's raw records
+    (``kineto_results``), which costs a small part of building its event
+    tree at 10^5 launches."""
     torch.cuda.synchronize(dev)
     acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
     with profile(activities=acts) as prof:
@@ -128,6 +130,8 @@ def trace(fn, dev, cpu: bool = True) -> dict:
     by_name = collections.defaultdict(lambda: [0.0, 0])
     host, spans = collections.Counter(), []
     for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():  # a span, on the host or the device
+            continue
         if e.device_type() == DeviceType.CUDA:
             us = e.duration_ns() / 1e3
             by_name[e.name()][0] += us
