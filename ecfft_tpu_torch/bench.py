@@ -19,7 +19,9 @@ Prints exactly ONE JSON line on stdout::
 stderr it logs its set-up: the seconds of each stage (the tree, the native
 baseline, ``prepare``, the first call, the gate) and the peak device memory
 (``torch.cuda.max_memory_allocated``, with the bytes the step loops'
-graph pool holds beside it: ``ops.graphs.pool_bytes``).
+graph pool holds beside it: ``ops.graphs.pool_bytes``), and the bytes of
+the scan executor's step plans (``ops.schedule.StepPlan``, inside the
+allocated bytes).
 
 Knobs, environment variables read when :func:`main` is called:
 ``ECFFT_BENCH_FIELD`` (secp256k1), ``ECFFT_BENCH_N`` (65536),
@@ -264,6 +266,12 @@ def main() -> dict:
         log(f"peak device memory: {(alloc + pool) / 1e9:.3f} GB "
             f"({alloc / 1e9:.3f} GB allocated at most, "
             f"{pool / 1e9:.3f} GB held by the step loops' graph pool)")
+    names = {id(entry[0]): key[0] for key, entry in tree._scheds.items()}
+    plans = [(names.get(id(p.pins[0]), "?"), p.nbytes)
+             for p in tree._graphs.plans.values()]
+    log(f"step plans held on {dev}: "
+        f"{sum(b for _, b in plans) / 1e9:.3f} GB ("
+        + ", ".join(f"{alg} {b / 1e9:.3f} GB" for alg, b in plans) + ")")
     log(f"peak host memory: "
         f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.3f} GB")
 

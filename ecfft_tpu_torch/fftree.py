@@ -39,8 +39,10 @@ no device. With Montgomery residents the pool is converted once, when it
 is built, and each call's state on the way in and out
 (``ops/schedule.py::run_chunks``). On a card each schedule's step loop
 is captured as a CUDA graph at its first call and replayed at every
-later one (``ops/graphs.py``); the tree keeps the graphs beside its
-schedules, and they go with it.
+later one (``ops/graphs.py``); the tree keeps the graphs, and the scan
+executor's step plans (``ops.schedule.StepPlan``: each schedule's index
+rows and D-engine rows, made at its first call), beside its schedules,
+and they go with it.
 
 ``ECFFT_EXECUTOR=unrolled`` runs the transforms on the unrolled executor
 (``ops/unrolled.py``); its per-schedule fusion analysis is cached beside
@@ -552,9 +554,9 @@ class FFTree:
         """Move the tree to ``device``: the pool and the schedules'
         residual banks (the tables, which feed only the pool, and the
         unrolled analysis, host numpy, stay on the CPU; the unscheduled
-        algorithms' device cache and the step loops' graphs are dropped,
-        and refilled there at first use); later batches go on that
-        device."""
+        algorithms' device cache and the step loops' graphs and step
+        plans are dropped, and made there at first use); later batches go
+        on that device."""
         device = torch.device(device)
         _check_field(self.spec, device)
         self.device = device

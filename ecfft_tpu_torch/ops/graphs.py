@@ -7,13 +7,15 @@ compiles runs of steps into cached jitted segments
 (``ecfft_tpu/ops/unrolled.py``, ``_SEG_CACHE``), so a call costs one
 dispatch a transform, or one a segment. The port's executors are Python
 loops of several launches a step (``_run_steps`` in ``ops/schedule.py``
-and ``ops/unrolled.py``): index synthesis, gathers, the D-engine's
-one-lane products, the kernel. On a card, :class:`GraphCache` captures
-such a loop once per key as a CUDA graph and replays it on every later
-call, one graph launch a chunk of lanes.
+and ``ops/unrolled.py``): gathers and the kernel, and in the unrolled
+loop index synthesis and the D-engine's one-lane products too. On a
+card, :class:`GraphCache` captures such a loop once per key as a CUDA
+graph and replays it on every later call, one graph launch a chunk of
+lanes.
 
-- **The key**: the schedule, the pool and residual bank its loop reads,
-  the executor with its parameters, the lanes of the chunk's graph and
+- **The key**: the schedule, what its loop reads (the pool and residual
+  bank, or the scan loop's step plan, which holds both), the executor
+  with its parameters, the lanes of the chunk's graph and
   the device. A graph's lanes are a power of two (:func:`bucket`): a
   chunk of fewer lanes is packed into the low lanes of its state, and the
   lanes above them compute on zeros and are cut off at the unpack, so a
@@ -252,11 +254,15 @@ class Captured:
 
 class GraphCache:
     """The captured step loops of one owner (a tree or a plan), by key,
-    freed with it: trees and plans keep one beside their schedule
-    entries, and ``FFTree.place_on`` starts a new one."""
+    and the step plans those loops read (``plans``, by the ids of the
+    schedule, pool and bank, which each plan pins; see
+    ``ops.schedule.step_plan``), freed with it: trees and plans keep one
+    beside their schedule entries, and ``FFTree.place_on`` starts a new
+    one. The plans are kept on the CPU too, where no graph is."""
 
     def __init__(self):
         self.graphs: dict = {}
+        self.plans: dict = {}
         self._lanes: dict = {}
 
     def lanes(self, loop_key: tuple, batch: int, device, budget) -> int:

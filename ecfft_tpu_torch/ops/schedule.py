@@ -17,20 +17,25 @@ The port's counterpart of the device half of ``ecfft_tpu/ops/schedule.py``
   each by the self-read step (a kernel launch on the card). The constant
   1 sits where the JAX package's ``to_state`` puts it (:func:`one_row`).
 
-The executor is a Python loop over the steps. Each step's opcode, window
-start, formula scalars and D-engine parameters come from the schedule's
-host numpy arrays, so no step waits for the device. Per step it
-synthesises the index rows in torch (a mirror of ``_synth_jnp``, or a
-residual bank row), gathers x1/x2 with ``index_select`` into buffers of
-their own, runs the running-diagonal coefficient engine for the branch
-the step's DOP needs, and hands the window to one of the three in-place
-step wrappers of ``ops/step.py``. An OP_MUL step goes to ``step.mulss``
-(a kernel of its own on the card); an OP_CMPSEL step is plain PyTorch on
-either device, as the JAX package leaves it to XLA: two gathers compared
-into one bool per batch lane, which stays on the device, and a select
-written into the window. Every index is clamped as ``jnp.clip``
-clamps it in the reference (``index_select`` would raise where
-``jnp.take`` clips).
+The executor is a Python loop over the steps of a :class:`StepPlan`: what
+a step reads besides the state depends only on the tree and the
+schedule, so it is made once per schedule and device (its owner's
+``graphs.GraphCache`` keeps it) and every call reads it. Making it runs
+the per-step work of the JAX package's scan body once, in step order:
+each column's index row synthesised in torch (a mirror of
+``_synth_jnp``, or a residual bank row), clamped as ``jnp.clip`` clamps
+it in the reference (``index_select`` would raise where ``jnp.take``
+clips), and the running-diagonal coefficient engine for the branch each
+step's DOP needs (one-lane step launches on the card); it keeps the
+index rows as int32 and those of the engine's rows that a step reads.
+Per step the loop then gathers x1/x2 with ``index_select`` into buffers
+of their own, gathers the coefficient rows from the pool or the plan's
+table, and hands the window to one of the three in-place step wrappers
+of ``ops/step.py``. An OP_MUL step goes to ``step.mulss`` (a kernel of
+its own on the card); an OP_CMPSEL step is plain PyTorch on either
+device, as the JAX package leaves it to XLA: two gathers compared into
+one bool per batch lane, which stays on the device, and a select
+written into the window.
 
 ``ECFFT_EXECUTOR=unrolled`` hands a schedule to the unrolled executor
 (``ops/unrolled.py``), which fuses the butterfly levels instead.
@@ -328,52 +333,160 @@ def check_opcode(op: int) -> None:
         raise ValueError(f"unknown opcode {op}")
 
 
-def _run_steps(spec: FieldSpec, pool, sched: Schedule, bank, x):
-    """Step the (W, L, B) state ``x`` through the schedule, in place."""
-    ops_a, starts, _, dp, _, _ = sched.xs
-    W, A = sched.W, sched.A
-    dev = x.device
-    q = torch.arange(A, device=dev)
-    bsx = max(sched.bs_max, 1)
-    D = torch.zeros((bsx, spec.num_limbs), dtype=torch.int32, device=dev)
-    iD = torch.zeros_like(D)
-    one_row, zero_row = pool[1:2], pool[0:1]
-    for t in range(ops_a.shape[0]):
-        op = int(ops_a[t])
-        check_opcode(op)
-        start = int(starts[t])
-        p = q + start
+# the columns each opcode reads: (state columns, coefficient columns)
+_READS = {OP_CMPSEL: ((0, 1, 2, 3), ()), OP_MUL: ((1, 3), ()),
+          OP_AFFINE: ((1, 3), (0, 2)), OP_AFFINE_C: ((1, 3), (0, 2)),
+          OP_AFF1: ((1, 3), (2,)), OP_AFF1_C: ((1, 3), (2,)),
+          OP_AFF1S: ((3,), (2,)), OP_AFF1S_C: ((3,), (2,))}
+_STATE, _POOL, _TABLE = range(3)  # where a kept index row points
 
-        def gather(ci):
-            return x.index_select(0, col_row(sched, bank, t, ci, p)
-                                  .clamp(0, W - 1))
 
-        def coeffs(ci, scratch_rows, pad_row):
-            return coeff_rows(pool, col_row(sched, bank, t, ci, p),
-                              scratch_rows, pad_row, bsx)
+class StepPlan:
+    """What the scan executor's step loop reads besides the state, made
+    once per schedule, pool and residual bank (so once per device) by
+    :func:`step_plan`.
 
-        CA, CB, D, iD = _d_engine(spec, pool, dp[t], D, iD, op)
+    ``steps``: per step (opcode, window start, columns), where column ci
+    is (source, int32 index row) for each column the opcode reads (None
+    for the others): the source is the state, the pool or ``table``, and
+    ``source.index_select(0, row)`` gives the rows the step reads. The
+    index rows are what the formulas or the residual bank give, clamped
+    as the unplanned loop clamps them (:func:`col_row`); a never-active
+    column (span ≤ 0) keeps no row of its own: it reads the window itself
+    (a slice of ``window``, one kept ``arange`` of the state's rows) or a
+    constant row that every column of that constant shares, and columns
+    with one formula at one start share one row. ``table``: the pool's
+    zero and one rows (a scratch column's pad rows), then those of the
+    D-engine's product rows that some scratch column reads, each column's
+    row pointing into it.
+
+    Made by running :func:`_synth` (through :func:`col_row`) and
+    :func:`_d_engine` over the schedule once, in step order, so a step of
+    the plan reads the values the unplanned loop computed at every call.
+    ``nbytes``: the device bytes the plan holds (the pool, the tree's, not
+    counted); ``kept``: whether its owner keeps it for later calls."""
+
+    __slots__ = ("steps", "pool", "table", "window", "nbytes", "kept",
+                 "pins")
+
+    def __init__(self, spec: FieldSpec, pool, sched: Schedule, bank,
+                 kept: bool = False):
+        ops_a, starts, colp, dp, rid, _ = sched.xs
+        W, A, P = sched.W, sched.A, pool.shape[0]
+        dev = pool.device
+        q = torch.arange(A, device=dev)
+        window = torch.arange(W, dtype=torch.int32, device=dev)
+        bsx = max(sched.bs_max, 1)
+        D = torch.zeros((bsx, spec.num_limbs), dtype=torch.int32,
+                        device=dev)
+        iD = torch.zeros_like(D)
+        rows = {}  # (what, …, clamp) → an index row that columns share
+        kept_rows, n_kept = [pool[0:1], pool[1:2]], 2
+
+        def index(t, ci, start, p, hi):
+            r = int(rid[t, ci])
+            cp = [int(v) for v in colp[t, ci]]
+            if r >= 0:
+                key = ("bank", r, hi)
+            elif cp[CP_SPAN] > 0:
+                key = ("synth", tuple(cp), start, hi)
+            elif cp[CP_DK]:
+                key = ("const", min(max(cp[CP_DC], 0), hi))
+            elif start + A - 1 <= hi:
+                return window[start:start + A]
+            else:
+                key = ("window", start, hi)
+            row = rows.get(key)
+            if row is None:
+                row = rows[key] = (col_row(sched, bank, t, ci, p)
+                                   .clamp(0, hi).to(torch.int32))
+            return row
+
+        steps = []
+        for t in range(ops_a.shape[0]):
+            op = int(ops_a[t])
+            check_opcode(op)
+            start = int(starts[t])
+            p = q + start
+            CA, CB, D, iD = _d_engine(spec, pool, dp[t], D, iD, op)
+            state_cols, coeff_cols = _READS[op]
+            cols = [None] * 4
+            for ci in state_cols:
+                cols[ci] = (_STATE, index(t, ci, start, p, W - 1))
+            for ci in coeff_cols:
+                scratch = CA if ci == 0 else CB
+                if scratch is None:
+                    cols[ci] = (_POOL, index(t, ci, start, p, P - 1))
+                    continue
+                # coeff_rows' [pad row ‖ scratch] at rows clamped to bsx,
+                # with the pad row (one for A, zero for B) at 1 or 0
+                r = index(t, ci, start, p, bsx)
+                used = torch.unique(r)
+                used = used[used > 0]
+                kept_rows.append(scratch.index_select(0, used - 1))
+                at = torch.searchsorted(used, r) + n_kept
+                cols[ci] = (_TABLE, torch.where(
+                    r == 0, int(ci == 0), at).to(torch.int32))
+                n_kept += used.shape[0]
+            steps.append((op, start, tuple(cols)))
+        self.steps, self.pool, self.window = steps, pool, window
+        self.table = torch.cat(kept_rows)
+        self.kept, self.pins = kept, (sched, pool, bank)
+        held = {self.table.untyped_storage().data_ptr():
+                self.table.untyped_storage().nbytes()}
+        for _, _, cols in steps:
+            for col in cols:
+                if col is not None:
+                    s = col[1].untyped_storage()
+                    held[s.data_ptr()] = s.nbytes()
+        self.nbytes = sum(held.values())
+
+
+def step_plan(spec: FieldSpec, pool, sched: Schedule, bank,
+              cache=None) -> StepPlan:
+    """The :class:`StepPlan` of ``sched`` over ``pool`` and ``bank``: the
+    one ``cache`` (the owner's ``graphs.GraphCache``) keeps, made there
+    at its first use (span ``ecfft.plan``; before any warm-up or capture,
+    so a graph records only the loop), or without a cache one for this
+    call alone."""
+    key = (id(sched), id(pool), id(bank))
+    plan = None if cache is None else cache.plans.get(key)
+    if plan is None:
+        with profiling.span("ecfft.plan"):
+            plan = StepPlan(spec, pool, sched, bank, kept=cache is not None)
+        if cache is not None:
+            cache.plans[key] = plan
+    return plan
+
+
+def _run_steps(spec: FieldSpec, plan: StepPlan, x):
+    """Step the (W, L, B) state ``x`` through the plan's steps, in place:
+    per step the gathers of the rows it reads and its step kernel."""
+    srcs = (x, plan.pool, plan.table)
+    for op, start, cols in plan.steps:
+        def take(ci):
+            src, row = cols[ci]
+            return srcs[src].index_select(0, row)
+
         if op == OP_CMPSEL:
-            cmpsel(x, gather, start)
+            cmpsel(x, take, start)
             continue
-        x2 = gather(3)
+        x2 = take(3)
         if op == OP_MUL:
-            step.mulss(spec, gather(1), x2, x, start)
+            step.mulss(spec, take(1), x2, x, start)
         elif op in (OP_AFFINE, OP_AFFINE_C):
-            step.aff2g_ip(spec, coeffs(0, CA, one_row),
-                          coeffs(2, CB, zero_row), x, gather(1), x2, start)
+            step.aff2g_ip(spec, take(0), take(2), x, take(1), x2, start)
         elif op in (OP_AFF1, OP_AFF1_C):
-            step.aff1g_ip(spec, coeffs(2, CB, zero_row), x, gather(1), x2,
-                          start)
+            step.aff1g_ip(spec, take(2), x, take(1), x2, start)
         else:
-            step.aff1s_ip(spec, coeffs(2, CB, zero_row), x, x2, start)
+            step.aff1s_ip(spec, take(2), x, x2, start)
 
 
 _ALLOC_MARGIN = 256 << 20  # room for the caching allocator's fragmentation
 
 
 def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int,
-                 m_in: int = 0):
+                 m_in: int = 0, planned: bool = True):
     """(per-lane bytes, fixed bytes) of running ``sched`` on a batch of B
     by either executor. Per lane: the int32 state (the extras of a tuple
     payload are rows of it) and two gathered windows, or the m_out rows an
@@ -381,22 +494,27 @@ def _chunk_bytes(sched: Schedule, L: int, B: int, m_out: int,
     a Montgomery conversion copies, whichever is larger; an
     OP_CMPSEL step frees its two compared windows before it gathers the two
     it selects from, and its (A, L, B) bool is covered by the margin.
-    Fixed: the whole (B, m_out, L) output, and the per-step temporaries
-    that do not grow with the batch (coefficient rows, int64 index rows,
-    the D-engine's planes and row products), with a margin for the
-    allocator. On a card the state is a graph's static buffer and the
-    step temporaries live in the graphs' pool, both held after the call:
-    the same bytes, counted by :func:`_lanes_per_chunk` as taken once
-    held."""
-    bsx = max(sched.bs_max, 1)
+    Fixed: the whole (B, m_out, L) output, the two coefficient windows of
+    a step, and a margin for the allocator. A loop that reads a
+    :class:`StepPlan` (``planned``, the scan executor's) makes no other
+    temporaries: the plan is made before the budget is read, so its bytes
+    are allocated, held, and out of what the budget finds free. The
+    unrolled loop makes its index rows and D-engine rows at every call:
+    for it the fixed part also counts two more coefficient windows, int64
+    index rows and the D-engine's planes and row products. On a card the
+    state is a graph's static buffer and the step temporaries live in the
+    graphs' pool, both held after the call: the same bytes, counted by
+    :func:`_lanes_per_chunk` as taken once held."""
     per_lane = (sched.W + max(2 * sched.A, m_out, m_in)) * L * 4
-    fixed = (B * m_out * L * 4 + 4 * sched.A * L * 4 + 32 * sched.A * 8
-             + 16 * bsx * L * 4 + _ALLOC_MARGIN)
+    fixed = B * m_out * L * 4 + 2 * sched.A * L * 4 + _ALLOC_MARGIN
+    if not planned:
+        bsx = max(sched.bs_max, 1)
+        fixed += 2 * sched.A * L * 4 + 32 * sched.A * 8 + 16 * bsx * L * 4
     return per_lane, fixed
 
 
 def _lanes_per_chunk(sched: Schedule, L: int, B: int, m_out: int,
-                     device, m_in: int = 0) -> int:
+                     device, m_in: int = 0, planned: bool = True) -> int:
     """Batch lanes that fit on the card at once (see :func:`_chunk_bytes`),
     budgeted from what the card and the caching allocator hold free; the
     graphs' pool (``graphs.pool_bytes``) is reserved but free to no other
@@ -408,7 +526,7 @@ def _lanes_per_chunk(sched: Schedule, L: int, B: int, m_out: int,
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device)
              - graphs.pool_bytes(device))
-    per_lane, fixed = _chunk_bytes(sched, L, B, m_out, m_in)
+    per_lane, fixed = _chunk_bytes(sched, L, B, m_out, m_in, planned)
     lanes = (free - fixed) // per_lane
     if lanes < 1:
         raise SizeError(
@@ -463,10 +581,11 @@ def run_schedule(spec: FieldSpec, pool, sched: Schedule, bank, batch,
 
         return run_unrolled(spec, pool, sched, bank, batch, one_pos, m_out,
                             meta, cache=cache)
+    plan = step_plan(spec, pool, sched, bank, cache)
     return run_chunks(
         spec, sched, batch, one_pos, m_out,
-        lambda x: _run_steps(spec, pool, sched, bank, x), cache,
-        ("scan",), (pool, bank))
+        lambda x: _run_steps(spec, plan, x), cache,
+        ("scan",), (plan,), plan)
 
 
 def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
@@ -479,12 +598,14 @@ def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
     step.aff1s_ip(spec, C.contiguous(), x, src, 0)
 
 
-def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins) -> None:
+def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins,
+                plan=None) -> None:
     """Run a chunk's step loop on its state ``x`` in place: the replay of
     its graph under ``key`` in ``cache`` (or the warm-up and the capture),
     or without a key the eager loop (span ``ecfft.steps``). Where a call
     record ``call`` is open, with an event before and after, and the chunk
-    noted in it."""
+    noted in it, with whether the loop read a kept :class:`StepPlan`
+    (``plan``) and its bytes."""
     if call is not None:
         call.mark()
     if key is not None:
@@ -499,13 +620,15 @@ def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins) -> None:
         shapes = None if call is None else graphs._added(before)[1]
     if call is not None:
         call.mark()
-        call.chunks.append(profiling.Chunk(lanes, x.shape[2], how, graph,
-                                           shapes))
+        kept = plan is not None and plan.kept
+        call.chunks.append(profiling.Chunk(
+            lanes, x.shape[2], how, graph, shapes, kept,
+            plan.nbytes if kept else 0))
 
 
 def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
                m_out: int, run_steps, cache=None, executor: tuple = ("scan",),
-               pins: tuple = ()):
+               pins: tuple = (), plan: StepPlan | None = None):
     """Pack, run (``run_steps(state)``, in place) and unpack ``batch`` in
     as many lane chunks as the device's memory asks for. With Montgomery
     residents (:func:`fields.device.is_mont`) the packed rows go into
@@ -524,7 +647,9 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
     and its output copied out. ``run_steps`` is the loop the graph
     records; without a cache it runs eagerly. Each chunk's phases are
     spans (``utils.profiling``), and the chunk is noted in the open call
-    record."""
+    record. ``plan``: the :class:`StepPlan` that ``run_steps`` reads (made
+    before the budget, which then finds its bytes held); None for a loop
+    that makes its own step temporaries."""
     first, *extras = batch if isinstance(batch, (tuple, list)) else (batch,)
     B, _, L = first.shape
     dev = first.device
@@ -536,7 +661,7 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
 
     def budget(lanes):
         return _lanes_per_chunk(sched, L, lanes, m_out, dev,
-                                m_in if mont else 0)
+                                m_in if mont else 0, plan is not None)
 
     replay = cache is not None and graphs.replays(first)
     if replay:
@@ -562,7 +687,7 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
                     if row is not None:
                         x[row] = fd.encode(spec, spec.r_mod_p,
                                            x.device)[:, None]
-            _chunk_loop(call, x, lanes, run_steps, cache, key, pins)
+            _chunk_loop(call, x, lanes, run_steps, cache, key, pins, plan)
             if mont:
                 with profiling.span("ecfft.from_mont"):
                     src = (x[:m_out].clone() if perm is None

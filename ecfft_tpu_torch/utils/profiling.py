@@ -22,13 +22,16 @@ And the measurement inside the program:
   ``ecfft.pack``, ``ecfft.to_mont`` and ``ecfft.from_mont`` (Montgomery
   residents only), ``ecfft.unpack``, and exactly one of ``ecfft.replay``,
   ``ecfft.warmup`` with ``ecfft.capture`` (``ops.graphs.GraphCache.run``),
-  or ``ecfft.steps`` (the eager loop). No span lies inside a step loop.
+  or ``ecfft.steps`` (the eager loop). A call that makes a schedule's
+  step plan has ``ecfft.plan`` (``ops.schedule.step_plan``) before its
+  chunks. No span lies inside a step loop.
 - the call record, always on: :func:`recorded` returns the last
   :data:`RING` calls, each a :class:`Call` with its algorithm, size,
   batch, lane chunks (:class:`Chunk`: lanes, lanes computed, replay,
   capture or eager loop, the captured graph's record, the step launches
-  by shape), flags (a kernel library built or loaded, a profiler active)
-  and spans on ``time.perf_counter_ns``'s clock, the clock of a caller's
+  by shape, whether the loop read a kept step plan and its bytes), flags
+  (a kernel library built or loaded, a profiler active) and spans on
+  ``time.perf_counter_ns``'s clock, the clock of a caller's
   ``time.perf_counter``. On a card, one call in :data:`EVERY` (its id a
   multiple) also records CUDA events on the call's stream at the call's
   entry, before and after each chunk's step loop, and at its end (never
@@ -156,8 +159,13 @@ class span:
 # eager loop); graph: a weak reference to the ``ops.graphs.Captured``
 # record (its set-up seconds and replays), None for the eager loop;
 # shapes: [(wrapper, Counter of (form, rows, lanes))], the step launches
-# the chunk made (a replay's and a capture's are the capture's own)
-Chunk = collections.namedtuple("Chunk", "lanes graph_lanes how graph shapes")
+# the chunk made (a replay's and a capture's are the capture's own); plan:
+# whether its step loop read a step plan that its owner keeps
+# (``ops.schedule.StepPlan``), and plan_bytes the plan's device bytes (0
+# without one)
+Chunk = collections.namedtuple(
+    "Chunk", "lanes graph_lanes how graph shapes plan plan_bytes",
+    defaults=(False, 0))
 
 
 class Call:

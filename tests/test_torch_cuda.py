@@ -952,3 +952,47 @@ def test_a_capture_that_fails_raises_naming_its_key(card):
     assert cache.graphs == {}
     torch.cuda.synchronize()
     assert int(state[0, 0, 0]) == 1  # the warm-up ran, the capture did not
+
+
+@pytest.mark.parametrize("field", ["secp256k1", "m31"])
+def test_a_planned_replay_equals_the_eager_loop(card, monkeypatch, field):
+    """ENTER and EXIT at n = 2^10, B = 5 on the scan executor: the first
+    call makes the schedule's step plan (span ``ecfft.plan``) before the
+    warm-up and the capture, and runs the D-engine's one-lane launches
+    there alone; the captured launch shapes are the graph's 8 lanes, none
+    of one lane; a replay and the eager loop, both reading the kept plan,
+    equal the first call bit for bit."""
+    from ecfft_tpu_torch.ops import graphs
+    from ecfft_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("ECFFT_EXECUTOR", raising=False)
+    n, B = 1024, 5
+    spec = FIELDS[field]
+    gpu = build_fftree_native(spec, n, device=card)
+    rng = __import__("random").Random(n)
+    for alg in ("enter", "exit"):
+        x = fd.encode(spec, [[rng.randrange(spec.p) for _ in range(n)]
+                             for _ in range(B)], "cpu").to(card)
+        before = {w: w.shapes.copy() for w in step.STEP_WRAPPERS}
+        first = getattr(gpu, alg)(x)
+        made = {k: c for w in step.STEP_WRAPPERS
+                for k, c in (w.shapes - before[w]).items()}
+        rec = profiling.recorded()[-1]
+        spans = {name: (s, e) for name, _, s, e in rec.spans}
+        assert spans["ecfft.plan"][1] <= spans["ecfft.warmup"][0] \
+            <= spans["ecfft.capture"][0]
+        (cap,) = [r for r in gpu._graphs.graphs.values()
+                  if r.pins[0] is gpu._schedule(alg, n)[0]]
+        shapes = [k for _, c in cap.shapes for k in c]
+        assert shapes and {lanes for _, _, lanes in shapes} == {8}
+        assert any(lanes == 1 for _, _, lanes in made)  # the D-engine's
+        replayed = getattr(gpu, alg)(x)
+        assert profiling.recorded()[-1].chunks[0].how == "replay"
+        with graphs._eager_loop():
+            eager = getattr(gpu, alg)(x)
+        torch.cuda.synchronize()
+        assert torch.equal(first, eager) and torch.equal(replayed, eager)
+        assert all(c.plan for r in profiling.recorded()[-3:]
+                   for c in r.chunks)
+        assert cap.replays == 1
+    assert len(gpu._graphs.plans) == 2

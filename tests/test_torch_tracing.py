@@ -95,12 +95,16 @@ def profiled_spans(fn) -> list:
     return out
 
 
-def chunk_spans(loop, mont=False) -> list:
+def chunk_spans(loop, mont=False, plan=False) -> list:
+    """The spans of a one-chunk call; ``plan``: the call makes its
+    schedule's step plan first."""
     inner = [("ecfft.pack", "ecfft.chunk")]
     inner += [("ecfft.to_mont", "ecfft.chunk")] if mont else []
     inner += [(name, "ecfft.chunk") for name in loop]
     inner += [("ecfft.from_mont", "ecfft.chunk")] if mont else []
-    return ([("ecfft.call", None), ("ecfft.chunk", "ecfft.call")] + inner
+    return ([("ecfft.call", None)]
+            + ([("ecfft.plan", "ecfft.call")] if plan else [])
+            + [("ecfft.chunk", "ecfft.call")] + inner
             + [("ecfft.unpack", "ecfft.chunk")])
 
 
@@ -109,12 +113,13 @@ def chunk_spans(loop, mont=False) -> list:
 
 @pytest.mark.parametrize("name", ["m31", "gp_cios3"])
 def test_spans_nest_under_a_profiler(card, name):
-    """A key's first call warms up and captures, the next replays; the
-    Montgomery conversions are spans only where the field has them."""
+    """A key's first call makes the step plan, warms up and captures, the
+    next replays; the Montgomery conversions are spans only where the
+    field has them."""
     t, x = tree(name), batch(name)
     mont = fd.is_mont(FIELDS[name])
     assert profiled_spans(lambda: t.enter(x)) == chunk_spans(
-        ["ecfft.warmup", "ecfft.capture"], mont)
+        ["ecfft.warmup", "ecfft.capture"], mont, plan=True)
     assert profiled_spans(lambda: t.enter(x)) == chunk_spans(
         ["ecfft.replay"], mont)
     assert [c.profiled for c in profiling.recorded()[-2:]] == [True, True]
@@ -122,6 +127,8 @@ def test_spans_nest_under_a_profiler(card, name):
 
 def test_the_eager_loop_is_one_span():
     t, x = tree(), batch()
+    assert profiled_spans(lambda: t.enter(x)) == chunk_spans(["ecfft.steps"],
+                                                             plan=True)
     assert profiled_spans(lambda: t.enter(x)) == chunk_spans(["ecfft.steps"])
 
 

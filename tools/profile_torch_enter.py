@@ -43,7 +43,7 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -109,7 +109,11 @@ def main() -> int:
     return rc
 
 
-def trace(fn, dev, cpu: bool = True) -> dict:
+# the span and the device kernel of :func:`trace`'s prelude
+PRELUDE, PRELUDE_KERNEL = "prelude", "FillFunctor<float>"
+
+
+def trace(fn, dev, cpu: bool = True, prelude: int = 0) -> dict:
     """One call of ``fn`` under ``torch.profiler``, fenced by
     synchronizes: its wall seconds, the device's records (kernels, copies
     and fills) with their microseconds by name, the union of their
@@ -119,18 +123,40 @@ def trace(fn, dev, cpu: bool = True) -> dict:
     (``record_function``, which the profiler also lays over the device's
     records) are left out. Reads the profiler's raw records
     (``kineto_results``), which costs a small part of building its event
-    tree at 10^5 launches."""
+    tree at 10^5 launches.
+
+    ``prelude``: that many fills of a one-element float tensor, run and
+    synchronized under the profiler before ``fn`` in a span of their own,
+    and left out of what is returned (the host's records up to the span's
+    end, the device's by their kernel, which the port never launches). In
+    a process that has run many profiler sessions, CUPTI now and then
+    drops the first records of a session (up to about 16 kernels); the
+    prelude takes them, so that ``fn``'s records are whole."""
     torch.cuda.synchronize(dev)
     acts = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
     with profile(activities=acts) as prof:
+        if prelude:
+            with record_function(PRELUDE):
+                pad = torch.zeros(1, device=dev)
+                for _ in range(prelude):
+                    pad.fill_(1.0)
+                torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     by_name = collections.defaultdict(lambda: [0.0, 0])
     host, spans = collections.Counter(), []
-    for e in prof.profiler.kineto_results.events():
+    events = list(prof.profiler.kineto_results.events())
+    cut = max((e.start_ns() + e.duration_ns() for e in events
+               if e.is_user_annotation() and e.name() == PRELUDE
+               and e.device_type() != DeviceType.CUDA), default=None)
+    for e in events:
         if e.is_user_annotation():  # a span, on the host or the device
+            continue
+        if cut is not None and (PRELUDE_KERNEL in e.name() if
+                                e.device_type() == DeviceType.CUDA
+                                else e.start_ns() <= cut):
             continue
         if e.device_type() == DeviceType.CUDA:
             us = e.duration_ns() / 1e3
