@@ -4,8 +4,10 @@ library only, never jax or ``ecfft_tpu``.
 
 The port carries the FFTree's eight algorithms (ENTER, EXIT, EXTEND,
 MEXTEND, DEGREE, REDC, MOD, VANISH) over secp256k1 (16 limbs of 16 bits),
-M31 (one 32-bit limb) and any other odd prime below 2^256 the JAX package
-runs (``fields.registry``), on the schedule machine, on the scan executor
+M31 (one 32-bit limb), BN254's base field ``bn254_fq`` (Grumpkin's scalar
+field; 16 limbs, Montgomery residents on the card: ``fields.bn254``) and
+any other odd prime below 2^256 the JAX package runs
+(``fields.registry``), on the schedule machine, on the scan executor
 or (``ECFFT_EXECUTOR=unrolled``) the unrolled one, with every step kernel
 written in CUDA for Hopper; the classical NTT it is compared with
 (``ntt.NTTPlan``); tree persistence (``serialize``, ``serialize_native``,
@@ -36,6 +38,7 @@ from ecfft_tpu_torch.errors import (
 )
 from ecfft_tpu_torch.fftree import (S0, S1, FFTree, build_fftree,
                                     build_fftree_native)
+from ecfft_tpu_torch.fields import bn254  # noqa: F401  (registers bn254_fq)
 from ecfft_tpu_torch.fields.registry import FIELDS
 
 __all__ = [

@@ -54,7 +54,9 @@ Persistence: a tree carries its domain's layers and rational maps
 :meth:`FFTree.prepare` with a ``cache_dir`` keeps the pool and the
 ENTER/EXIT schedules in the JAX package's files (the same names and keys,
 the canonical pool as uint32), so a cache either package wrote loads into
-the other; :meth:`FFTree.place_on` moves a tree between devices.
+the other, and a field with Montgomery residents its pool in that form
+too, in a file of the port's own; :meth:`FFTree.place_on` moves a tree
+between devices.
 """
 
 from __future__ import annotations
@@ -511,12 +513,24 @@ class FFTree:
         ``<dir>/.sched_<field>_<alg>_<m>_<fmt>_<digest>.npz``, the JAX
         package's names and keys: a file that exists is read instead of
         built (the pool only while the tree has none yet), one that does
-        not is written."""
+        not is written. With Montgomery residents the pool converted to
+        them is kept as well, in ``<dir>/.pool_<field>_<n>_<fmt>_<digest>_
+        <form>.npz`` (``step.kernel_form``), and read in place of the
+        canonical one, so a later tree does not convert it again."""
         tag = f"{_POOL_FORMAT}_{self._cache_digest()}"
         if cache_dir is not None and self._pool is None:
             path = os.path.join(
                 cache_dir, f".pool_{self.spec.name}_{self.n}_{tag}.npz")
-            if os.path.exists(path):
+            rpath = (os.path.join(cache_dir, f".pool_{self.spec.name}_"
+                                  f"{self.n}_{tag}_"
+                                  f"{step.kernel_form(self.spec)}.npz")
+                     if fd.is_mont(self.spec) else None)
+            if rpath is not None and os.path.exists(rpath):
+                with np.load(rpath, allow_pickle=False) as z:
+                    self._pool = torch.from_numpy(
+                        z["pool"].astype(np.int32)).to(self.device)
+                    self._pool_off = json.loads(str(z["offsets"]))
+            elif os.path.exists(path):
                 with np.load(path, allow_pickle=False) as z:
                     pool = torch.from_numpy(z["pool"].astype(np.int32))
                     offsets = json.loads(str(z["offsets"]))
@@ -524,7 +538,12 @@ class FFTree:
                 pool, offsets = build_pool(self.spec, self.tables)
                 np.savez(path, pool=pool.numpy().astype(np.uint32),
                          offsets=json.dumps(offsets))
-            self._ensure_pool(pool, offsets)
+            if self._pool is None:
+                self._ensure_pool(pool, offsets)
+                if rpath is not None:
+                    np.savez(rpath,
+                             pool=self._pool.cpu().numpy().astype(np.uint32),
+                             offsets=json.dumps(offsets))
         self._ensure_pool()
         for m in sizes or (self.n,):
             for alg in ("enter", "exit"):

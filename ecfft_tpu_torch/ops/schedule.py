@@ -54,6 +54,7 @@ chunking stays, budgeted from ``torch.cuda.mem_get_info``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import weakref
 
@@ -598,14 +599,35 @@ def _redc_rows(spec: FieldSpec, x, m: int, src, factor: int) -> None:
     step.aff1s_ip(spec, C.contiguous(), x, src, 0)
 
 
+@contextlib.contextmanager
+def _converting(call, name: str, rows: int, lanes: int, converts: list):
+    """The span ``name`` of a Montgomery conversion of ``rows`` state rows
+    in ``lanes`` lanes. Where a call record ``call`` is open, with an
+    event before and after, and the conversion noted in ``converts`` with
+    the ``aff1s_ip`` launches its wrapper counted."""
+    if call is None:
+        with profiling.span(name):
+            yield
+        return
+    before = step.aff1s_ip.launches.total()
+    call.mark()
+    with profiling.span(name):
+        yield
+    call.mark()
+    k = len(call.marks)
+    converts.append(profiling.Convert(
+        name, rows, lanes, step.aff1s_ip.launches.total() - before,
+        (k - 2, k - 1)))
+
+
 def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins,
-                plan=None) -> None:
+                plan=None, converts=()) -> None:
     """Run a chunk's step loop on its state ``x`` in place: the replay of
     its graph under ``key`` in ``cache`` (or the warm-up and the capture),
     or without a key the eager loop (span ``ecfft.steps``). Where a call
     record ``call`` is open, with an event before and after, and the chunk
     noted in it, with whether the loop read a kept :class:`StepPlan`
-    (``plan``) and its bytes."""
+    (``plan``) and its bytes, and its Montgomery ``converts``."""
     if call is not None:
         call.mark()
     if key is not None:
@@ -623,7 +645,7 @@ def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins,
         kept = plan is not None and plan.kept
         call.chunks.append(profiling.Chunk(
             lanes, x.shape[2], how, graph, shapes, kept,
-            plan.nbytes if kept else 0))
+            plan.nbytes if kept else 0, converts))
 
 
 def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
@@ -636,7 +658,9 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
     past them) becomes R mod p, and the output rows leave it before the
     unpack: the bits of the JAX package's state, which converts the whole
     state (its other rows are zero, and 0·R = 0). The 1 sits at
-    :func:`one_row`, a pad row behind the packed ones.
+    :func:`one_row`, a pad row behind the packed ones. The open call
+    record notes each conversion's rows, lanes and launches in the
+    chunk's entry, with an event before and after it.
 
     On a card, given a ``cache`` (``graphs.GraphCache``), the step loop
     of each chunk is a replay of its graph there (captured at the key's
@@ -679,17 +703,21 @@ def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,
                     key = (loop, graphs.bucket(lanes), dev)
                     x = cache.state(key, sched.W, L)
                 x = to_state(part, sched.W, one_pos, x)
+            converts = [] if mont else ()
             if mont:
-                with profiling.span("ecfft.to_mont"):
+                with _converting(call, "ecfft.to_mont", m_in, x.shape[2],
+                                 converts):
                     _redc_rows(spec, x, m_in, x[:m_in].clone(),
                                spec.r2_mod_p)
                     row = one_row(sched.W, m_in, one_pos)
                     if row is not None:
                         x[row] = fd.encode(spec, spec.r_mod_p,
                                            x.device)[:, None]
-            _chunk_loop(call, x, lanes, run_steps, cache, key, pins, plan)
+            _chunk_loop(call, x, lanes, run_steps, cache, key, pins, plan,
+                        converts)
             if mont:
-                with profiling.span("ecfft.from_mont"):
+                with _converting(call, "ecfft.from_mont", m_out, x.shape[2],
+                                 converts):
                     src = (x[:m_out].clone() if perm is None
                            else x.index_select(0, perm))
                     _redc_rows(spec, x, m_out, src, 1)

@@ -29,18 +29,22 @@ And the measurement inside the program:
   :data:`RING` calls, each a :class:`Call` with its algorithm, size,
   batch, lane chunks (:class:`Chunk`: lanes, lanes computed, replay,
   capture or eager loop, the captured graph's record, the step launches
-  by shape, whether the loop read a kept step plan and its bytes), flags
+  by shape, whether the loop read a kept step plan and its bytes, and
+  with Montgomery residents each conversion's rows, lanes and launches:
+  :class:`Convert`), flags
   (a kernel library built or loaded, a profiler active) and spans on
   ``time.perf_counter_ns``'s clock, the clock of a caller's
   ``time.perf_counter``. On a card, one call in :data:`EVERY` (its id a
   multiple) also records CUDA events on the call's stream at the call's
-  entry, before and after each chunk's step loop, and at its end (never
-  inside a capture), drawn from a pool that a call that captures a graph
-  fills (set-up) and the ring refills, and read only by
-  :meth:`Call.device_ns`, so that :meth:`Call.idle_ns` gives the card's
-  idle in a call that ran without a profiler. The other calls keep the
-  host stamps alone: an event costs the host about 20 µs in the call
-  path, two of them before the graph's launch while the card waits.
+  entry, before and after each chunk's step loop and each Montgomery
+  conversion, and at its end (never inside a capture), drawn from a pool
+  that a call that captures a graph fills (set-up) and the ring refills,
+  and read only by :meth:`Call.device_ns`, so that :meth:`Call.idle_ns`
+  gives the card's idle in a call that ran without a profiler, and
+  :meth:`Call.convert_ns` the device time of its conversions. The other
+  calls keep the host stamps alone: an event costs the host about 20 µs
+  in the call path, two of them before the graph's launch while the card
+  waits.
 - :func:`_recording`: a private context that switches the record off, to
   measure what it costs, and for tests.
 """
@@ -162,10 +166,19 @@ class span:
 # the chunk made (a replay's and a capture's are the capture's own); plan:
 # whether its step loop read a step plan that its owner keeps
 # (``ops.schedule.StepPlan``), and plan_bytes the plan's device bytes (0
-# without one)
+# without one); converts: the chunk's conversions into and out of
+# Montgomery form (:class:`Convert`; none for a canonical field)
 Chunk = collections.namedtuple(
-    "Chunk", "lanes graph_lanes how graph shapes plan plan_bytes",
-    defaults=(False, 0))
+    "Chunk", "lanes graph_lanes how graph shapes plan plan_bytes converts",
+    defaults=(False, 0, ()))
+
+# one conversion of a chunk's state into or out of Montgomery form
+# (``ops.schedule.run_chunks``): its span (``ecfft.to_mont`` or
+# ``ecfft.from_mont``), the state rows it converted, the state's lanes, the
+# ``aff1s_ip`` launches its wrapper counted (one on a card, none on the
+# plain path), and the indices in the call's marks of the events placed
+# before and after it
+Convert = collections.namedtuple("Convert", "span rows lanes launches marks")
 
 
 class Call:
@@ -230,13 +243,32 @@ class Call:
         return sum(e - s for n, _, s, e in self.spans if n == name)
 
     def launches(self) -> collections.Counter:
-        """The call's step launches by (wrapper's name, rows, lanes)."""
+        """The call's step launches by (wrapper's name, rows, lanes): its
+        step loops' and its Montgomery conversions'."""
         out = collections.Counter()
         for ch in self.chunks:
             for w, c in ch.shapes:
                 for (_, rows, lanes), k in c.items():
                     out[(w.__name__, rows, lanes)] += k
+            for cv in ch.converts:
+                if cv.launches:
+                    out[("aff1s_ip", cv.rows, cv.lanes)] += cv.launches
         return out
+
+    def converts(self) -> list:
+        """The call's conversions into and out of Montgomery form
+        (:class:`Convert`), chunk by chunk."""
+        return [cv for ch in self.chunks for cv in ch.converts]
+
+    def convert_ns(self):
+        """Device ns between the events before and after each of the
+        call's Montgomery conversions, summed. None without events or
+        without a conversion. Waits for the last event."""
+        cvs = self.converts()
+        dev = self.device_ns() if cvs else None
+        if dev is None:
+            return None
+        return sum(dev[j] - dev[i] for i, j in (cv.marks for cv in cvs))
 
     def device_ns(self):
         """Where each event completed, on the host's clock: the entry
