@@ -385,6 +385,11 @@ M31_SASS_NAMES = {
     "muladd2": "m31_step_kernelILi2E", "mulss": "m31_step_kernelILi3E",
     "fused_bf1": "m31_pair_kernelILb0E", "fused_bf2": "m31_pair_kernelILb1E",
     "fused_cascade": "m31_warp_cascade"}
+# the pair form's kernels (step_kernels.cu, namespace xor_pair), by wrapper,
+# with the step whose kernel function each runs (a launch counts as one of
+# that step's too): x2 read in place from the window's pairs of rows
+PAIR_KINDS = {"aff1s_pair_ip": "aff1s_ip", "aff2g_pair_ip": "aff2g_ip"}
+PAIR_NAMESPACE = "xor_pair"
 # the forms phase 2 builds: secp256k1's, M31's, phase 10's and the
 # one-limb fold form of phases 11 and 12
 FORMS = ("fold16", "m31", "cios16", "fold4", "cios3", "cios13", "fold1")
@@ -582,8 +587,11 @@ def kernel_sass(lib: str, form: str) -> dict:
         [tool, "-sass", lib], capture_output=True, text=True,
         check=True).stdout)
     names = sass_names(form)
+    # the pair form (namespace xor_pair) shares step_kernel<0> and <2>'s
+    # names and is not among them
     found = {k: insts for k, pat in names.items()
-             for name, insts in funcs.items() if pat in name}
+             for name, insts in funcs.items()
+             if pat in name and PAIR_NAMESPACE not in name}
     check(set(found) == set(names), f"{form}: SASS functions found: "
                                      f"{sorted(found)}")
     return found
@@ -602,6 +610,8 @@ def kernel_resources(lib: str, form: str) -> list:
         if line.strip().startswith("Function ") and "REG:" in lines[i + 1]:
             name = line.strip()[len("Function "):].rstrip(":")
             short = next((k for k in names.values() if k in name), name)
+            if PAIR_NAMESPACE in name:
+                short = f"{PAIR_NAMESPACE}::{short}"
             out.append(f"[{form}] {short}: {lines[i + 1].strip()}")
     check(len(out) >= len(set(names.values())),
           f"cuobjdump -res-usage named {len(out)} kernels of {form}")
@@ -873,6 +883,125 @@ def held_to_plain(kernel, plain, state, start, A):
     err = int((got.long() - want.long()).abs_().max())
     del want, got
     return err
+
+
+def pair_bound(kind, A, B, spec=SPEC) -> dict:
+    """The least time of one pair-form call (:data:`PAIR_KINDS`): its 2
+    windows' bytes (each element read once and written once, L limbs of 4
+    bytes) and its coefficient rows over the memory rate, or its step's
+    word products over the IMAD.WIDE rate, the larger; and beside it the
+    benchmark's frozen bound (``benchmark/roofline.py::bound_s``: 3 windows
+    and the rows, each element at its value's bytes), which its launches
+    are read against as its step's."""
+    nl, E = spec.num_limbs, A * B
+    rows = 1 + (kind == "aff2g_pair_ip")
+    b_ms = (2 * E + rows * A) * nl * 4 / HBM_BYTES_PER_S * 1e3
+    o_ms = (word_products(PAIR_KINDS[kind], (), spec) * E
+            / (SM_CLOCKS * WORD_PRODUCTS_PER_SM) * 1e3)
+    el = -(-spec.p.bit_length() // 8)
+    frozen = (3 * E + rows * A) * el / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "word products",
+            "bytes_bound_ms": b_ms, "ops_bound_ms": o_ms,
+            "frozen_bound_ms": max(frozen, o_ms)}
+
+
+def run_pair(kind, coeffs, state, h, start, x2, plain, spec=SPEC):
+    """The pair kernel, or its plain version (the window's pair rows
+    gathered, then its step's plain version), on ``state`` in place."""
+    A = coeffs[0].shape[0]
+    if not plain:
+        getattr(step, kind)(spec, *coeffs, state, h, start, x2)
+        return state
+    x2w = step._pair_window(state, start, A, h, x2)
+    win = state[start:start + A]
+    if len(coeffs) == 2:
+        new = step._muladd2_cols(spec, coeffs[0].unsqueeze(-1), win,
+                                 coeffs[1].unsqueeze(-1), x2w)
+    else:
+        new = step._muladd1_cols(spec, coeffs[0].unsqueeze(-1), win, x2w)
+    state[start:start + A] = new
+    return state
+
+
+def run_gathered(kind, coeffs, state, h, start, spec=SPEC):
+    """The gathered step that a pair step replaces, as the scan loop ran
+    it: x2 (and for aff2g x1, the window) gathered by ``index_select``
+    into buffers of their own, then the step's kernel."""
+    A = coeffs[0].shape[0]
+    q = torch.arange(A, device=state.device)
+    x2 = state.index_select(0, start + (q ^ h))
+    if kind == "aff1s_pair_ip":
+        step.aff1s_ip(spec, coeffs[0], state, x2, start)
+    else:
+        x1 = state.index_select(0, start + q)
+        step.aff2g_ip(spec, *coeffs, state, x1, x2, start)
+    return state
+
+
+def pair_kernels_against_plain(gen, sched, spec=SPEC, batch=BATCH,
+                               label="") -> dict:
+    """Phase 4's pair form (:data:`PAIR_KINDS`) at the main shape
+    (``sched``'s window at W − A − 128, ``batch`` lanes): each kernel
+    against its plain version at h 1, 128 and A/2 (the partner in the
+    same warp's row pair, 128 rows off, half the window off), and at h 128
+    with an index row that names every third row's own, bit for bit;
+    timed at h 128 with CUDA events beside its bound (:func:`pair_bound`),
+    its plain version and the gathered step it replaces
+    (:func:`run_gathered`). Returns {kind: stats}."""
+    W, A = sched.W, sched.A
+    start = W - A - 128
+    q = torch.arange(A, device=DEV)
+    own = torch.where(q % 3 == 0, start + q,
+                      start + (q ^ 128)).to(torch.int32)
+
+    def partners(h):
+        return (start + (q ^ h)).to(torch.int32)
+    res = {}
+    for kind in PAIR_KINDS:
+        name = kind + (f"[{label}]" if label else "")
+        coeffs = [rand_limbs((A,), gen, spec)
+                  for _ in range(1 + (kind == "aff2g_pair_ip"))]
+        st = rand_limbs((W, batch), gen, spec).permute(0, 2, 1).contiguous()
+        what = f"(W={W}, A={A}, L={spec.num_limbs}, B={batch}"
+        err = 0
+        for h, x2 in ((1, partners(1)), (128, partners(128)),
+                      (A // 2, partners(A // 2)), (128, own)):
+            e = held_to_plain(
+                lambda s: run_pair(kind, coeffs, s, h, start, x2, False,
+                                   spec),
+                lambda s: run_pair(kind, coeffs, s, h, start, x2, True,
+                                   spec), st, start, A)
+            err = max(err, e)
+            log(f"{name} at {what}, h={h}"
+                f"{', every third row its own' if x2 is own else ''}): "
+                f"max |kernel - plain| = {e}")
+            torch.cuda.empty_cache()
+        check(err == 0, f"{name} disagrees with its plain version")
+        x2 = partners(128)
+        ms = cuda_ms(lambda: run_pair(kind, coeffs, st, 128, start, x2,
+                                      False, spec), 20, SETTLE_S)
+        clk = clock_now()
+        gathered_ms = cuda_ms(lambda: run_gathered(kind, coeffs, st, 128,
+                                                   start, spec), 20, SETTLE_S)
+        plain_ms = cuda_ms(lambda: run_pair(kind, coeffs, st, 128, start,
+                                            x2, True, spec), 3)
+        b = pair_bound(kind, A, batch, spec)
+        log(f"{name} at {what}, h=128): kernel {ms:.3f} ms (then {clk}), "
+            f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms by "
+            f"{b['bound_by']} (bytes {b['bytes_bound_ms']:.3f} ms, word "
+            f"products {b['ops_bound_ms']:.3f} ms); the kernel takes "
+            f"{ms / b['bound_ms']:.3f}x the bound; the benchmark's frozen "
+            f"bound {b['frozen_bound_ms']:.3f} ms reads "
+            f"{100 * b['frozen_bound_ms'] / ms:.2f}%; the gathered step it "
+            f"replaces (gathers and {PAIR_KINDS[kind]}) {gathered_ms:.3f} ms "
+            f"({gathered_ms / ms:.2f}x)")
+        res[kind] = {"ms": ms, "plain_ms": plain_ms, "gathered_ms":
+                     gathered_ms, **b, "max_abs_err": err,
+                     "shape": what + ", h=128)"}
+        del st
+        torch.cuda.empty_cache()
+    return res
 
 
 # the kernels phase 4 also holds on inputs that stress the word reduction
@@ -2133,6 +2262,8 @@ def replay_against_eager(tree, gen, label, batch, cases):
             form = step.kernel_form(spec)
             recorded = collections.Counter()
             for w, c in rec.counts:
+                if w in step.PAIR_WRAPPERS:  # counted as their steps too
+                    continue
                 check(set(c) <= {form}, f"{label} {name} ({ex}): the graph "
                                         f"recorded launches of {set(c)}")
                 recorded[w.__name__] += c[form]
@@ -2588,6 +2719,7 @@ def main() -> int:
 
     with Phase("4 kernels against their plain versions"):
         kstats = kernels_against_plain(gen, sched, cascade_run)
+        pstats = pair_kernels_against_plain(gen, sched)
     with Phase("4b the M31 forms against their plain versions"):
         m31_stats = kernels_against_plain(gen, sched31, run31, M31,
                                           M31_BATCH, "m31")
@@ -2600,6 +2732,8 @@ def main() -> int:
             if label == "cios16":  # the STARK prime at the full width
                 gstats[label] = kernels_against_plain(
                     gen, gsched, grun, GSPEC["stark"], batch, "cios16 stark")
+                pstats["cios16"] = pair_kernels_against_plain(
+                    gen, gsched, GSPEC["stark"], batch, "cios16 stark")
                 kernels_against_plain(gen, gsched, grun, GSPEC[label], batch,
                                       "cios16 slack 0", small_only=True)
             else:  # a launch at n = 2^10 is shorter than the host's work
@@ -2850,6 +2984,10 @@ def main() -> int:
                         "launches": launches, **fold1_stats[k]})
     check(len(kernels) == 72, f"{len(kernels)} kernels in the line")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"pair_kernels": {
+        f"{k}[{label}]": s for label, stats in
+        (("fold16", {k: pstats[k] for k in PAIR_KINDS}),
+         ("cios16", pstats.get("cios16", {}))) for k, s in stats.items()}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

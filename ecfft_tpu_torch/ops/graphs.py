@@ -161,7 +161,8 @@ def _counted() -> tuple:
     """Every kernel wrapper with a ``launches`` Counter."""
     from ecfft_tpu_torch.ops import step, unrolled
 
-    return (*step.STEP_WRAPPERS, *unrolled.FUSED_WRAPPERS)
+    return (*step.STEP_WRAPPERS, *step.PAIR_WRAPPERS,
+            *unrolled.FUSED_WRAPPERS)
 
 
 def _counts_now() -> list:

@@ -31,11 +31,16 @@ index rows as int32 and those of the engine's rows that a step reads.
 Per step the loop then gathers x1/x2 with ``index_select`` into buffers
 of their own, gathers the coefficient rows from the pool or the plan's
 table, and hands the window to one of the three in-place step wrappers
-of ``ops/step.py``. An OP_MUL step goes to ``step.mulss`` (a kernel of
-its own on the card); an OP_CMPSEL step is plain PyTorch on either
-device, as the JAX package leaves it to XLA: two gathers compared into
-one bool per batch lane, which stays on the device, and a select
-written into the window.
+of ``ops/step.py``. A self-read or two-product step whose x2 row reads,
+at each window row q, the partner row q XOR h or row q itself (and whose
+x1 row, for the latter, is the window itself) is a pair step: the plan
+marks it with its h where the field's kernels have the pair form (every
+word form, not M31's), and the loop hands it to the pair wrapper, which
+reads the rows in place, with no gather of x1 or x2. An OP_MUL step goes
+to ``step.mulss`` (a kernel of its own on the card); an OP_CMPSEL step is
+plain PyTorch on either device, as the JAX package leaves it to XLA: two
+gathers compared into one bool per batch lane, which stays on the device,
+and a select written into the window.
 
 ``ECFFT_EXECUTOR=unrolled`` hands a schedule to the unrolled executor
 (``ops/unrolled.py``), which fuses the butterfly levels instead.
@@ -169,6 +174,8 @@ def build_pool(spec: FieldSpec, tables: dict) -> tuple[torch.Tensor, dict]:
 _OPS = (OP_AFFINE, OP_AFFINE_C, OP_AFF1, OP_AFF1_C, OP_AFF1S, OP_AFF1S_C,
         OP_MUL, OP_CMPSEL)
 _FROM_SCRATCH = (OP_AFFINE_C, OP_AFF1_C, OP_AFF1S_C)
+_TWO = (OP_AFFINE, OP_AFFINE_C)
+_PAIRED = (OP_AFF1S, OP_AFF1S_C, *_TWO)  # the opcodes with a pair form
 
 
 def one_row(W: int, m: int, one_pos: int):
@@ -359,7 +366,9 @@ class StepPlan:
     with one formula at one start share one row. ``table``: the pool's
     zero and one rows (a scratch column's pad rows), then those of the
     D-engine's product rows that some scratch column reads, each column's
-    row pointing into it.
+    row pointing into it. ``pairs``: per step its partner distance h
+    where the step is a pair step (:func:`pair_h`) and the field's
+    kernels have the pair form (``ops.step.pair_form``), else 0.
 
     Made by running :func:`_synth` (through :func:`col_row`) and
     :func:`_d_engine` over the schedule once, in step order, so a step of
@@ -367,8 +376,8 @@ class StepPlan:
     ``nbytes``: the device bytes the plan holds (the pool, the tree's, not
     counted); ``kept``: whether its owner keeps it for later calls."""
 
-    __slots__ = ("steps", "pool", "table", "window", "nbytes", "kept",
-                 "pins")
+    __slots__ = ("steps", "pairs", "pool", "table", "window", "nbytes",
+                 "kept", "pins")
 
     def __init__(self, spec: FieldSpec, pool, sched: Schedule, bank,
                  kept: bool = False):
@@ -403,7 +412,7 @@ class StepPlan:
                                    .clamp(0, hi).to(torch.int32))
             return row
 
-        steps = []
+        steps, pairs, paired = [], [], step.pair_form(spec)
         for t in range(ops_a.shape[0]):
             op = int(ops_a[t])
             check_opcode(op)
@@ -430,7 +439,9 @@ class StepPlan:
                     r == 0, int(ci == 0), at).to(torch.int32))
                 n_kept += used.shape[0]
             steps.append((op, start, tuple(cols)))
+            pairs.append(pair_h(op, start, cols, q) if paired else 0)
         self.steps, self.pool, self.window = steps, pool, window
+        self.pairs = pairs
         self.table = torch.cat(kept_rows)
         self.kept, self.pins = kept, (sched, pool, bank)
         held = {self.table.untyped_storage().data_ptr():
@@ -441,6 +452,26 @@ class StepPlan:
                     s = col[1].untyped_storage()
                     held[s.data_ptr()] = s.nbytes()
         self.nbytes = sum(held.values())
+
+
+def pair_h(op: int, start: int, cols, q) -> int:
+    """The partner distance h of a pair step, else 0: a self-read or
+    two-product step whose x2 index row (the clamped row) reads, at every
+    window position ``q``, row ``start + (q XOR h)`` or row ``start + q``,
+    at least once the former, for one power of two h with the window's
+    height a multiple of 2h, and whose x1 row, for a two-product step, is
+    the window itself. Each pair of rows {q, q XOR h} is then read and
+    written by that step alone."""
+    if op not in _PAIRED:
+        return 0
+    d = (cols[3][1] - start) ^ q
+    h = int(d.max())
+    if h < 1 or h & (h - 1) or q.shape[0] % (2 * h) or \
+            not bool(((d == 0) | (d == h)).all()):
+        return 0
+    if op in _TWO and not torch.equal(cols[1][1].long(), start + q):
+        return 0
+    return h
 
 
 def step_plan(spec: FieldSpec, pool, sched: Schedule, bank,
@@ -462,20 +493,28 @@ def step_plan(spec: FieldSpec, pool, sched: Schedule, bank,
 
 def _run_steps(spec: FieldSpec, plan: StepPlan, x):
     """Step the (W, L, B) state ``x`` through the plan's steps, in place:
-    per step the gathers of the rows it reads and its step kernel."""
+    per step the gathers of the rows it reads and its step kernel; a pair
+    step gathers its coefficient rows alone."""
     srcs = (x, plan.pool, plan.table)
-    for op, start, cols in plan.steps:
+    for (op, start, cols), h in zip(plan.steps, plan.pairs):
         def take(ci):
             src, row = cols[ci]
             return srcs[src].index_select(0, row)
 
+        if h:
+            if op in _TWO:
+                step.aff2g_pair_ip(spec, take(0), take(2), x, h, start,
+                                   cols[3][1])
+            else:
+                step.aff1s_pair_ip(spec, take(2), x, h, start, cols[3][1])
+            continue
         if op == OP_CMPSEL:
             cmpsel(x, take, start)
             continue
         x2 = take(3)
         if op == OP_MUL:
             step.mulss(spec, take(1), x2, x, start)
-        elif op in (OP_AFFINE, OP_AFFINE_C):
+        elif op in _TWO:
             step.aff2g_ip(spec, take(0), take(2), x, take(1), x2, start)
         elif op in (OP_AFF1, OP_AFF1_C):
             step.aff1g_ip(spec, take(2), x, take(1), x2, start)
@@ -627,7 +666,8 @@ def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins,
     or without a key the eager loop (span ``ecfft.steps``). Where a call
     record ``call`` is open, with an event before and after, and the chunk
     noted in it, with whether the loop read a kept :class:`StepPlan`
-    (``plan``) and its bytes, and its Montgomery ``converts``."""
+    (``plan``) and its bytes, its Montgomery ``converts``, and its step
+    launches' shapes with those of the pair form apart."""
     if call is not None:
         call.mark()
     if key is not None:
@@ -643,9 +683,13 @@ def _chunk_loop(call, x, lanes: int, run_steps, cache, key, pins,
     if call is not None:
         call.mark()
         kept = plan is not None and plan.kept
+        pairs = [(w, c) for w, c in shapes if w in step.PAIR_WRAPPERS]
+        if pairs:
+            shapes = [(w, c) for w, c in shapes
+                      if w not in step.PAIR_WRAPPERS]
         call.chunks.append(profiling.Chunk(
             lanes, x.shape[2], how, graph, shapes, kept,
-            plan.nbytes if kept else 0, converts))
+            plan.nbytes if kept else 0, converts, pairs))
 
 
 def run_chunks(spec: FieldSpec, sched: Schedule, batch, one_pos: int,

@@ -9,10 +9,19 @@ The in-place wrappers update the window [start, start + A) of a
 
 with (A, L) coefficient rows and (A, L, B) gathered windows x1, x2. They
 replace ``pallas_aff1s_ip``, ``pallas_aff1g_ip`` and ``pallas_aff2g_ip``
-of ``ecfft_tpu/ops/pallas_step.py``. The muladd pair replaces the
-out-of-place ``pallas_muladd1``/``pallas_muladd2`` (the unrolled
-executor's generic steps) and writes rows [start, start + A) of an output
-of the caller's choosing: the state itself, or a new window (start 0):
+of ``ecfft_tpu/ops/pallas_step.py``. Their pair form reads x2 from the
+window itself, at the partner row q XOR h (h a power of two, A a
+multiple of 2h) or, where the step's index row names it, at row q
+itself, and the two-product step x1 as the window itself, so that
+nothing is gathered (the word forms; M31's kernels have none):
+
+- :func:`aff1s_pair_ip`: state[s+q] ← state[s+q] + C[q]·state[r[q]]
+- :func:`aff2g_pair_ip`: state[s+q] ← A[q]·state[s+q] + B[q]·state[r[q]]
+
+The muladd pair replaces the out-of-place ``pallas_muladd1``/
+``pallas_muladd2`` (the unrolled executor's generic steps) and writes rows
+[start, start + A) of an output of the caller's choosing: the state
+itself, or a new window (start 0):
 
 - :func:`muladd1`: out[s+q] ← x1[q] + C[q]·x2[q]
 - :func:`muladd2`: out[s+q] ← A[q]·x1[q] + B[q]·x2[q]
@@ -37,7 +46,9 @@ goes to the plain PyTorch version beside it (:func:`_muladd1_cols`,
 :func:`_muladd2_cols`, :func:`_mulss_cols`), which mirrors the JAX
 package's XLA step in int64. Each wrapper counts its kernel launches per
 form in its ``launches`` Counter, and per form, rows and lanes in its
-``shapes`` Counter; the plain path does not count.
+``shapes`` Counter; the plain path does not count. A pair-form launch
+counts as a launch of its step (``aff1s_ip`` or ``aff2g_ip``, whose
+kernel function it runs), and in its own wrapper's counts besides.
 
 For the in-place steps x1 and x2 must be buffers of their own, never
 views of the state: the in-place write is race-free only because every
@@ -45,6 +56,8 @@ thread reads its inputs from them (or, for the self-read step, from the
 one state element it writes). The muladd pair also takes x1 as the very
 window it writes (OP_AFF1S), for the same reason. :func:`mulss` takes no
 view of its output at all; its two factors may be one buffer (a square).
+The pair form reads the partner rows in place: a block of its kernel
+holds both rows of each pair it writes, and they cross in shared memory.
 """
 
 from __future__ import annotations
@@ -118,8 +131,10 @@ _SIGNATURES = {
     "ecfft_aff2g_ip": (5, 3), "ecfft_muladd1": (4, 3),
     "ecfft_muladd2": (5, 3), "ecfft_fused_bf1": (2, 4),
     "ecfft_fused_bf2": (3, 4), "ecfft_fused_cascade": (4, 4),
-    "ecfft_mulss": (3, 3),
+    "ecfft_mulss": (3, 3), "ecfft_aff1s_pair_ip": (3, 4),
+    "ecfft_aff2g_pair_ip": (4, 4),
 }
+_WORD_ONLY = ("ecfft_aff1s_pair_ip", "ecfft_aff2g_pair_ip")  # no M31 form
 
 
 def load_kernels(form: str = "fold16") -> ctypes.CDLL:
@@ -132,6 +147,8 @@ def load_kernels(form: str = "fold16") -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name, (n_ptrs, n_ints) in _SIGNATURES.items():
             if form == "m31":  # the same arguments without the constants
+                if name in _WORD_ONLY:
+                    continue
                 fn = getattr(so, _m31_name(name))
                 fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
             else:
@@ -178,6 +195,17 @@ def kernel_form(spec: FieldSpec) -> str:
             f"kernels take 2 to {MAX_LIMBS} limbs of 16 bits (p < 2^256) or "
             "M31's one 32-bit word")
     return f"{'cios' if fd.is_mont(spec) else 'fold'}{spec.num_limbs}"
+
+
+def pair_form(spec: FieldSpec) -> bool:
+    """Whether the kernels of ``spec``'s form have the pair form of the
+    self-read and two-product steps (:func:`aff1s_pair_ip`,
+    :func:`aff2g_pair_ip`): every word form; M31's kernels have none, and
+    a field that no kernel takes has none."""
+    try:
+        return kernel_form(spec) != "m31"
+    except NotImplementedError:
+        return False
 
 
 def _words(v: int):
@@ -324,6 +352,80 @@ def aff2g_ip(spec: FieldSpec, A_, B_, state, x1, x2, start: int) -> None:
                                            B_.unsqueeze(-1), x2)
 
 
+def _check_pair(spec: FieldSpec, state, start: int, coeffs, h: int,
+                x2) -> int:
+    """Validate a pair step's operands; returns the window height A, the
+    coefficient rows' (A, L): h must be a power of two with A a multiple
+    of 2h, so that q XOR h stays in the window, and the index row x2 an
+    (A,) int32 tensor beside the state."""
+    check_state(spec, state, start, 0)
+    A = coeffs[0].shape[0] if coeffs[0].dim() == 2 else 0
+    check_operands(spec, state.device, (state,), coeffs, (), A,
+                   state.shape[2])
+    if h < 1 or h & (h - 1) or A % (2 * h):
+        raise ValueError(f"partner distance {h} must be a power of two with "
+                         f"{A} rows a multiple of {2 * h}")
+    if (x2.dtype != torch.int32 or tuple(x2.shape) != (A,)
+            or x2.device != state.device or not x2.is_contiguous()):
+        raise ValueError(f"the index row must be ({A},) int32 on "
+                         f"{state.device}, got {tuple(x2.shape)} {x2.dtype}")
+    check_state(spec, state, start, A)
+    return A
+
+
+def _pair_window(state, start: int, A: int, h: int, x2):
+    """A copy of what a pair step reads as x2: row q of the window holds
+    the state's row start + q where ``x2[q]`` names it, else start +
+    (q XOR h)."""
+    q = torch.arange(A, device=state.device)
+    return state.index_select(0, torch.where(x2 == start + q, start + q,
+                                             start + (q ^ h)))
+
+
+def _launch_pair(wrapper, step_wrapper, name: str, spec: FieldSpec, state,
+                 *args) -> None:
+    """Launch pair kernel ``name`` on ``args`` (the rows, the index row,
+    the state, then start, h, A and B), counted under its step's wrapper
+    and its own."""
+    if not pair_form(spec):
+        raise NotImplementedError(f"{spec.name}: the {kernel_form(spec)} "
+                                  "kernels have no pair form")
+    launch(name, spec, state.device, *args)
+    count(step_wrapper, spec, args[-2], args[-1])
+    count(wrapper, spec, args[-2], args[-1])
+
+
+def aff1s_pair_ip(spec: FieldSpec, C, state, h: int, start: int,
+                  x2) -> None:
+    """state[start+q] ← state[start+q] + C[q]·state[r] in place (OP_AFF1S
+    whose x2 lies in its own pair of rows): r = start + q where the step's
+    int32 index row ``x2`` holds that row, else the partner start +
+    (q XOR h)."""
+    A = _check_pair(spec, state, start, (C,), h, x2)
+    if state.is_cuda:
+        _launch_pair(aff1s_pair_ip, aff1s_ip, "ecfft_aff1s_pair_ip", spec,
+                     state, C, x2, state, start, h, A, state.shape[2])
+        return
+    win = state[start:start + A]
+    win.copy_(_muladd1_cols(spec, C.unsqueeze(-1), win,
+                            _pair_window(state, start, A, h, x2)))
+
+
+def aff2g_pair_ip(spec: FieldSpec, A_, B_, state, h: int, start: int,
+                  x2) -> None:
+    """state[start+q] ← A[q]·state[start+q] + B[q]·state[r] in place
+    (OP_AFFINE whose x1 is the window and whose x2 lies in its own pair of
+    rows; r as :func:`aff1s_pair_ip`'s)."""
+    A = _check_pair(spec, state, start, (A_, B_), h, x2)
+    if state.is_cuda:
+        _launch_pair(aff2g_pair_ip, aff2g_ip, "ecfft_aff2g_pair_ip", spec,
+                     state, A_, B_, x2, state, start, h, A, state.shape[2])
+        return
+    state[start:start + A] = _muladd2_cols(
+        spec, A_.unsqueeze(-1), state[start:start + A], B_.unsqueeze(-1),
+        _pair_window(state, start, A, h, x2))
+
+
 def _check_out(spec: FieldSpec, coeffs, x1, x2, out, start: int) -> int:
     """Validate a muladd's operands; returns the window height A. Rows
     [start, start + A) of ``out`` are written, so no window may share its
@@ -389,7 +491,8 @@ def mulss(spec: FieldSpec, x1, x2, out, start: int) -> None:
 
 
 STEP_WRAPPERS = (aff1s_ip, aff1g_ip, aff2g_ip, muladd1, muladd2, mulss)
-for _w in STEP_WRAPPERS:
+PAIR_WRAPPERS = (aff1s_pair_ip, aff2g_pair_ip)  # counted in a step's too
+for _w in (*STEP_WRAPPERS, *PAIR_WRAPPERS):
     _w.launches = collections.Counter()
     _w.shapes = collections.Counter()
 

@@ -31,7 +31,8 @@ And the measurement inside the program:
   capture or eager loop, the captured graph's record, the step launches
   by shape, whether the loop read a kept step plan and its bytes, and
   with Montgomery residents each conversion's rows, lanes and launches:
-  :class:`Convert`), flags
+  :class:`Convert`; and those of its step launches that ran in the pair
+  form, by shape), flags
   (a kernel library built or loaded, a profiler active) and spans on
   ``time.perf_counter_ns``'s clock, the clock of a caller's
   ``time.perf_counter``. On a card, one call in :data:`EVERY` (its id a
@@ -167,10 +168,14 @@ class span:
 # whether its step loop read a step plan that its owner keeps
 # (``ops.schedule.StepPlan``), and plan_bytes the plan's device bytes (0
 # without one); converts: the chunk's conversions into and out of
-# Montgomery form (:class:`Convert`; none for a canonical field)
+# Montgomery form (:class:`Convert`; none for a canonical field); pairs:
+# [(pair wrapper, Counter of (form, rows, lanes))], those of the step
+# launches in shapes that ran in the pair form (``ops.step.PAIR_WRAPPERS``:
+# x2 read from the window's partner rows, no gather)
 Chunk = collections.namedtuple(
-    "Chunk", "lanes graph_lanes how graph shapes plan plan_bytes converts",
-    defaults=(False, 0, ()))
+    "Chunk",
+    "lanes graph_lanes how graph shapes plan plan_bytes converts pairs",
+    defaults=(False, 0, (), ()))
 
 # one conversion of a chunk's state into or out of Montgomery form
 # (``ops.schedule.run_chunks``): its span (``ecfft.to_mont`` or

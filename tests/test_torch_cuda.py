@@ -13,7 +13,10 @@ by ``place_on`` and one read from a cache directory; the device bootstrap
 (``FFTree.build``) on the card against the CPU's, each ``*_unscheduled``
 algorithm likewise with kernel launches, sharding over two shards of the
 card, and M31's unscheduled ENTER at a size whose blocks, folded into the
-lanes, would pass the M31 kernels' grid.
+lanes, would pass the M31 kernels' grid; the pair form of the self-read
+and two-product kernels ("fold16" and "cios16") on the main path's window
+against its plain version, and replays of ENTER and EXIT that take it
+against the eager loop.
 
 Marked ``cuda``: without a card every test here skips. This file imports
 no JAX, so it runs on a machine without it:
@@ -996,3 +999,110 @@ def test_a_planned_replay_equals_the_eager_loop(card, monkeypatch, field):
                    for c in r.chunks)
         assert cap.replays == 1
     assert len(gpu._graphs.plans) == 2
+
+
+# ------------------------------------------------------- the pair form
+
+PAIR_W, PAIR_A = 131200, 65536  # the main path's window at n = 2^16
+PAIR_FIELDS = {"fold16": "secp256k1", "cios16": "bn254_fq"}
+
+
+def _canonical(spec, gen, *shape):
+    """Values below p as (*shape, L) int32 limbs, drawn on the card: random
+    limbs under a top limb below p's."""
+    x = torch.randint(0, 1 << 16, (*shape, spec.num_limbs), generator=gen,
+                      dtype=torch.int32, device=gen.device)
+    x[..., -1] = torch.randint(0, spec.to_limbs(spec.p)[-1], shape,
+                               generator=gen, dtype=torch.int32,
+                               device=gen.device)
+    return x
+
+
+@pytest.mark.parametrize("h", [1, 128, 32768])
+@pytest.mark.parametrize("B", [1, 16, 256])
+@pytest.mark.parametrize("form", list(PAIR_FIELDS))
+def test_pair_kernels_match_plain_versions(card, form, B, h):
+    """Both pair kernels on the main path's window (W 131200, A 65536 at
+    W − A − 128) equal their plain versions (run on the card) bit for bit,
+    every row reading its partner, and with an index row that names every
+    third row's own; rows outside the window stay as they were; each
+    launch counts once under its step and once under its pair wrapper."""
+    spec = FIELDS[PAIR_FIELDS[form]]
+    assert step.kernel_form(spec) == form
+    gen = torch.Generator(device=card).manual_seed(B + h)
+    start = PAIR_W - PAIR_A - 128
+    state = _canonical(spec, gen, PAIR_W, B).permute(0, 2, 1).contiguous()
+    q = torch.arange(PAIR_A, device=card)
+    partners = (start + (q ^ h)).to(torch.int32)
+    own = torch.where(q % 3 == 0, start + q, start + (q ^ h)).to(torch.int32)
+    for kind, gathered in (("aff1s_pair_ip", step.aff1s_ip),
+                           ("aff2g_pair_ip", step.aff2g_ip)):
+        coeffs = [_canonical(spec, gen, PAIR_A)
+                  for _ in range(1 + (kind == "aff2g_pair_ip"))]
+        for x2 in (partners, own):
+            want = state.clone()
+            win = want[start:start + PAIR_A]
+            x2w = step._pair_window(want, start, PAIR_A, h, x2)
+            if len(coeffs) == 2:
+                new = step._muladd2_cols(spec, coeffs[0].unsqueeze(-1), win,
+                                         coeffs[1].unsqueeze(-1), x2w)
+            else:
+                new = step._muladd1_cols(spec, coeffs[0].unsqueeze(-1), win,
+                                         x2w)
+            want[start:start + PAIR_A] = new
+            del new, x2w, win
+            got = state.clone()
+            wrapper = getattr(step, kind)
+            before = (wrapper.launches[form], gathered.launches[form])
+            wrapper(spec, *coeffs, got, h, start, x2)
+            torch.cuda.synchronize()
+            assert (wrapper.launches[form], gathered.launches[form]) == \
+                (before[0] + 1, before[1] + 1)
+            assert torch.equal(got, want), (kind, x2 is own)
+            del got, want
+            torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("field", ["secp256k1", "bn254_fq"])
+def test_a_replay_with_pair_steps_equals_the_eager_loop(card, monkeypatch,
+                                                        field):
+    """ENTER and EXIT at n = 1024, B = 5, whose plans mark their pair
+    steps: the first call (eager loop, then the capture), a replay and
+    the eager loop equal one another bit for bit and the native engine
+    (ENTER) or the input (EXIT of ENTER); the replay counts one pair launch
+    a marked step, and its record's chunk notes them."""
+    from ecfft_tpu_torch.ops import graphs
+    from ecfft_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("ECFFT_EXECUTOR", raising=False)
+    n, B = 1024, 5
+    spec = FIELDS[field]
+    form = step.kernel_form(spec)
+    gpu = build_fftree_native(spec, n, device=card)
+    nt = NativeFFTree(spec, n)
+    rng = __import__("random").Random(n)
+    ints = [[rng.randrange(spec.p) for _ in range(n)] for _ in range(B)]
+    x = fd.encode(spec, ints, "cpu").to(card)
+    outs = {}
+    for alg in ("enter", "exit"):
+        arg = x if alg == "enter" else outs["enter"]
+        first = getattr(gpu, alg)(arg)
+        (plan,) = [p for p in gpu._graphs.plans.values()
+                   if p.pins[0] is gpu._schedule(alg, n)[0]]
+        marked = sum(1 for h in plan.pairs if h)
+        assert marked > 0
+        before = [w.launches[form] for w in step.PAIR_WRAPPERS]
+        replayed = getattr(gpu, alg)(arg)
+        after = [w.launches[form] for w in step.PAIR_WRAPPERS]
+        (chunk,) = profiling.recorded()[-1].chunks
+        assert chunk.how == "replay"
+        assert sum(after) - sum(before) == marked == \
+            sum(k for _, c in chunk.pairs for k in c.values())
+        with graphs._eager_loop():
+            eager = getattr(gpu, alg)(arg)
+        torch.cuda.synchronize()
+        assert torch.equal(first, eager) and torch.equal(replayed, eager)
+        outs[alg] = eager
+    assert [[int(v) for v in fd.decode(spec, r)] for r in outs["enter"].cpu()] \
+        == [nt.enter(v) for v in ints]
+    assert torch.equal(outs["exit"], x)
